@@ -5,25 +5,33 @@
 Phases (any failure raises and exits non-zero; there is no CPU path):
 
 1. device: the card's name and power limit; CUDA must be available.
-2. build: nvcc builds the three kernels from orz_tpu_torch/csrc.
-3. kernels: K1 (match depth, depth 8 and 32), K3 (fence walk) and K5
-   (symrank) at the main-path shape, 4 x 8 MiB segments, on inputs from
-   the port's own FRONT and MID.  Exact equality with the plain versions;
-   CUDA-event times of kernel and plain (plain K5 is a host loop, timed by
-   the host clock).
+2. build: nvcc builds the kernels from orz_tpu_torch/csrc, one process per
+   source, all started together.
+3. kernels: K1 (match depth, depth 8 and 32), K2 (masked match depth,
+   depth 384 with near gating at 96: the iteration cap 4094 and the
+   conform's two-tier cap 32766/4094, on the port's own plan and FRONT
+   mask), K3 (fence walk), K4 (mask walk) and K5 (symrank) at the
+   main-path shape, 4 x 8 MiB segments, on inputs from the port's own
+   FRONT and MID.  Exact equality with the plain versions; CUDA-event
+   times of kernel and plain (plain K2 and K5 are timed once by the host
+   clock: K5's is a host loop); each kernel's bound, the least time the
+   card could take for the same work.
 4. cpu parity: 64 KiB text-like and binary-like segments encoded on the GPU
-   at l1 and l2 (rings_mode=0) must equal the port's CPU encode, which the
-   CPU tests hold to the JAX chain and to the sequential oracle; the same
-   data through torch_encode_bytes must round-trip through the native
-   decoder.
-5. e2e: 32 MiB through torch_encode_bytes(level=1) with the defaults
-   (8 MiB segments, batch 4, 2 MiB chunks), decoded by the shared native
-   decoder; every kernel must have launched and no segment may have gone
-   through the per-segment retry.  Then per-stage times of one 4 x 8 MiB
-   batch.
-6. profile: one warm 4 x 8 MiB encode_segments_batch under torch.profiler;
-   prints its wall time, device busy time (union of kernel, copy and set
-   intervals), idle share and the kernels that take the most device time.
+   at l1, at l2 with rings_mode=0 and at the l2 default (OTZ2, the default
+   schedule) must equal the port's CPU encode, which the CPU tests hold to
+   the JAX chain and to the sequential oracle; the same data through
+   torch_encode_bytes must round-trip through the native decoder.
+5. e2e l2 (the main path): 32 MiB through torch_encode_bytes(level=2) with
+   the defaults (8 MiB segments, batch 4, 2 MiB chunks), decoded by the
+   native decoder; every kernel must have launched, no segment may have
+   gone through the per-segment retry.  Then per-stage times of one
+   4 x 8 MiB l2 batch (FRONT, QUALITY scan, QUALITY tail, MID2, BACK),
+   read through encode_segments_batch's stage hook.
+6. e2e l1: the same 32 MiB at level 1 (K1, K3 and K5 must launch).
+7. profile: one warm 4 x 8 MiB encode_segments_batch at l2 and at l1 under
+   torch.profiler; prints the wall time, device busy time (union of
+   kernel, copy and set intervals), idle share and the kernels that take
+   the most device time.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is the per-kernel JSON record.
@@ -185,25 +193,117 @@ def _batch_inputs(data: bytes, seg: int, bsz: int):
     return (torch.from_numpy(bufs).cuda(), torch.from_numpy(lens).cuda())
 
 
+# --- bounds -------------------------------------------------------------------
+
+# NVIDIA H100 SXM (NVIDIA's data sheet, at the full 700 W): 3.35 TB/s of
+# device memory.  The kernels do 32-bit integer work, for which the table
+# of published peaks gives no rate: 33.5 T operations/s is taken, half the
+# 67 TFLOP/s float32 rate (which counts a fused multiply-add as two).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 33.5e12
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move over the memory rate and its operations over the
+    operation rate."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
+
+def match_bound(msk, msp, rank_s, dw_s, end, depth: int, ro_cap: int,
+                mask_s=None, near: int = 0) -> dict:
+    """K1/K2, from this run's data.  Bytes: every slot's key (and mask
+    byte) read and its 3 words written; a slot's rank read when it is in a
+    same-key pair that passes the mask gates; a query's position read
+    when it compares a pair (its LCP cap); and each slot's dwords read up
+    to the first that differs, the deepest over its compared pairs, within
+    the cap.  Operations: 3 (compare the key, subtract the ranks, compare
+    the offset) per same-key pair within the window."""
+    import torch
+
+    from orz_tpu_torch.device.host import N_DW
+    from orz_tpu_torch.kernels.match_depth import shift_dn
+    from orz_tpu_torch.spec import FENCE, PAD_FRONT
+
+    bsz, n = msk.shape
+    cap = torch.minimum(FENCE - ((msp - PAD_FRONT) & (FENCE - 1)),
+                        end.view(-1, 1) - msp)
+    cap_dw = ((cap + 3) // 4).clamp(0, N_DW)
+    need_rank = torch.zeros_like(msk, dtype=torch.bool)
+    need_pos = torch.zeros_like(msk, dtype=torch.bool)
+    n_dw = torch.zeros(bsz * n, dtype=torch.int64, device=msk.device)
+    pairs = 0
+    for j in range(1, min(depth, n - 1) + 1):
+        same = torch.zeros_like(need_rank)
+        same[:, j:] = msk[:, j:] == msk[:, :-j]
+        if not bool(same.any()):  # sorted keys: no pair at any larger j
+            break
+        gated = same
+        if mask_s is not None:
+            if near and j > near:
+                gated = gated & mask_s
+            pairs += int(gated.sum())
+            gated = gated & shift_dn(mask_s, j, False)
+        else:
+            pairs += int(gated.sum())
+        need_rank |= gated
+        need_rank[:, :-j] |= gated[:, j:]
+        ok = gated & (rank_s - 1 - shift_dn(rank_s, j, 0) < ro_cap)
+        b, i = ok.nonzero(as_tuple=True)
+        if b.numel() == 0:
+            continue
+        need_pos[b, i] = True
+        nz = (dw_s[b, :, i] ^ dw_s[b, :, i - j]) != 0
+        t = torch.where(nz.any(dim=1), nz.int().argmax(dim=1) + 1, N_DW)
+        t = torch.minimum(t, cap_dw[b, i]).long()
+        for slot in (b * n + i, b * n + i - j):
+            n_dw.scatter_reduce_(0, slot, t, "amax")
+    nbytes = (bsz * n * (4 + 12 + (1 if mask_s is not None else 0))
+              + 4 * (int(need_rank.sum()) + int(need_pos.sum())
+                     + int(n_dw.sum()) + bsz))
+    return bound(nbytes, 3 * pairs)
+
+
+def walk_bound(n_items_total: int, bsz: int, n: int, counts: bool) -> dict:
+    """K3/K4: the walk reads nxt at each item start only and writes the
+    (B, n) byte mask (K4 also the B counts); 3 operations per step."""
+    return bound(4 * n_items_total + bsz * n + (4 * bsz if counts else 0)
+                 + 4 * bsz, 3 * n_items_total)
+
+
+# --- phases -------------------------------------------------------------------
+
+
 def phase_kernels(data: bytes) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     import torch
 
-    from orz_tpu_torch.device.host import (
+    from orz_tpu_torch.device.host import _bucket
+    from orz_tpu_torch.kernels import (
+        fence_walk,
+        match_depth,
+        match_depth_masked,
+        symrank,
+        walk_mask,
+    )
+    from orz_tpu_torch.ops import batched as ob
+    from orz_tpu_torch.spec import (
+        OTZ2_NEAR,
+        OTZ2_RO_CAP,
         PAD_FRONT,
         PAD_TAIL,
-        _bucket,
+        RING,
         n_chunks_for,
     )
-    from orz_tpu_torch.kernels import fence_walk, match_depth, symrank
-    from orz_tpu_torch.ops import batched as ob
 
     rec = {}
     bufs, lens = _batch_inputs(data, 8 * MIB, 4)
-    n = bufs.shape[1]
-    valid = ((torch.arange(n, device=bufs.device) >= PAD_FRONT)
-             & (torch.arange(n, device=bufs.device) < (PAD_FRONT + lens)
-                .view(-1, 1)))
+    bsz, n = bufs.shape
+    p = torch.arange(n, device=bufs.device)
+    valid = (p >= PAD_FRONT) & (p < (PAD_FRONT + lens).view(-1, 1))
     ba = ob.byte_arrays_b(bufs)
     rank = ob.context_ranks_b(ba, valid)
     msk, msp, rank_s, dw_s = ob.candidate_arrays_b(ba, rank, valid)
@@ -215,24 +315,72 @@ def phase_kernels(data: bytes) -> dict:
         err = require_equal(f"match_depth d{depth}", got, want)
         ms = cuda_ms(lambda: match_depth.match_depth(*args), 5)
         plain_ms = cuda_ms(lambda: match_depth.match_depth_plain(*args), 2)
+        bd = match_bound(*args, RING)
         log(f"K1 match_depth depth {depth} B=4 n={n}: equal, kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
-        if depth == 8:  # the level-1 depth the e2e phase runs
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bd['bound_ms']:.3f} ms ({bd['bound_by']})")
+        if depth == 32:  # FRONT's depth at l2, the main path
             rec["match_depth"] = dict(max_abs_err=err, ms=ms,
-                                      plain_ms=plain_ms)
-    del msk, msp, rank_s, dw_s
+                                      plain_ms=plain_ms, **bd)
+    del msk, msp, rank_s, dw_s, rank, ba
 
-    an = ob.analyze_b(bufs, lens, 8)
+    # K2 on QUALITY's inputs: the port's plan and the l2 FRONT's mask
+    mask = ob.front_body_b(bufs, lens, 32)[6]
+    plan = ob.masked_plan_b(bufs, lens)
+    order = plan.msp.long()
+    rank_s = torch.gather(ob.masked_context_counts_planned_b(plan, valid,
+                                                              mask), 1, order)
+    mask_s = torch.gather(mask, 1, order)
+    variants = (("iteration", OTZ2_RO_CAP, None), ("conform", RING,
+                                                   OTZ2_RO_CAP))
+    for variant, ro_cap, near_cap in variants:
+        args = (plan.msk, plan.msp, rank_s, plan.dw_s, end, mask_s, 384,
+                ro_cap, OTZ2_NEAR, near_cap)
+        got = match_depth_masked.match_depth_masked(*args)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = match_depth.match_depth_plain(*args[:5], 384, ro_cap, mask_s,
+                                             OTZ2_NEAR, near_cap)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        err = require_equal(f"match_depth_masked {variant}", got, want)
+        del want
+        ms = cuda_ms(lambda: match_depth_masked.match_depth_masked(*args), 5)
+        bd = match_bound(*args[:5], 384, ro_cap, mask_s, OTZ2_NEAR)
+        log(f"K2 match_depth_masked {variant} depth 384 near {OTZ2_NEAR} "
+            f"ro_cap {ro_cap} near cap {near_cap} B=4 n={n}: equal, "
+            f"{int((got[0] >= 0).sum())} matches, kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms (once), bound {bd['bound_ms']:.3f} ms "
+            f"({bd['bound_by']})")
+        if variant == "iteration":  # QUALITY's 11 deep steps
+            rec["match_depth_masked"] = dict(max_abs_err=err, ms=ms,
+                                             plain_ms=plain_ms, **bd)
+    del plan, order, rank_s, mask_s, mask
+
+    an = ob.analyze_b(bufs, lens, 32)
     nxt = ob.decisions_b(an, lens, n).nxt
+    del an
     got = fence_walk.fence_walk_mask(nxt, lens)
     want = fence_walk.fence_walk_mask_plain(nxt, lens)
     err = require_equal("fence_walk", got, want)
+    n_starts = int(got.sum())
     ms = cuda_ms(lambda: fence_walk.fence_walk_mask(nxt, lens), 5)
     plain_ms = cuda_ms(lambda: fence_walk.fence_walk_mask_plain(nxt, lens), 2)
-    log(f"K3 fence_walk B=4 n={n}: equal, {int(got.sum())} starts, kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
-    rec["fence_walk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    del an, nxt
+    bd = walk_bound(n_starts, bsz, n, counts=False)
+    log(f"K3 fence_walk B=4 n={n}: equal, {n_starts} starts, kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms")
+    rec["fence_walk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bd)
+
+    got = walk_mask.walk_mask(nxt, lens)
+    want = walk_mask.walk_mask_plain(nxt, lens)
+    err = require_equal("walk_mask", got, want)
+    ms = cuda_ms(lambda: walk_mask.walk_mask(nxt, lens), 5)
+    plain_ms = cuda_ms(lambda: walk_mask.walk_mask_plain(nxt, lens), 2)
+    bd = walk_bound(n_starts, bsz, n, counts=True)
+    log(f"K4 walk_mask B=4 n={n}: equal, n_items {got[1].tolist()}, kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms")
+    rec["walk_mask"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bd)
+    del nxt, got, want
 
     def k5_inputs(seg):
         b, sl = _batch_inputs(data, seg, 4)
@@ -251,9 +399,14 @@ def phase_kernels(data: bytes) -> dict:
     plain_ms = (time.perf_counter() - t) * 1e3
     err = require_equal("symrank", got, want)
     ms = cuda_ms(lambda: symrank.symrank(*args), 3)
-    log(f"K5 symrank B=4 x 8 MiB ({int(args[3].sum())} items): equal, "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms (host loop)")
-    rec["symrank"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    n_it = int(args[3].sum())
+    m = args[0].shape[1]
+    # symbol, sr_unlikely and sr_ctx of each item and the census orders
+    # read once, coded written once; 10 operations per item
+    bd = bound(12 * n_it + 4 * 4 * 431 + 4 * 4 * m, 10 * n_it)
+    log(f"K5 symrank B=4 x 8 MiB ({n_it} items): equal, kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.1f} ms (host loop), bound {bd['bound_ms']:.3f} ms")
+    rec["symrank"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bd)
     return rec
 
 
@@ -263,112 +416,140 @@ def phase_cpu_parity(seed: int) -> None:
 
     rng = np.random.default_rng(seed)
     segs = [text_span(rng, _vocab(rng)), binary_span(rng)]
-    for level in (1, 2):
+    for level, rings_mode in ((1, 0), (2, 0), (2, None)):
+        name = f"l{level} rings_mode={'default' if rings_mode is None else 0}"
         t = time.perf_counter()
-        got = encode_segments_batch(segs, level, rings_mode=0, device="cuda")
-        want = encode_segments_batch(segs, level, rings_mode=0, device="cpu")
+        got = encode_segments_batch(segs, level, rings_mode=rings_mode,
+                                    device="cuda")
+        want = encode_segments_batch(segs, level, rings_mode=rings_mode,
+                                     device="cpu")
         for kind, payload, ref in zip(("text", "binary"), got, want):
             if payload != ref:
-                raise AssertionError(f"cpu parity: l{level} {kind} payload "
+                raise AssertionError(f"cpu parity: {name} {kind} payload "
                                      f"differs from the CPU encode")
         data = b"".join(segs)
-        comp = container.torch_encode_bytes(data, level=level, rings_mode=0,
+        comp = container.torch_encode_bytes(data, level=level,
+                                            rings_mode=rings_mode,
                                             segment_size=1 << 16,
                                             device="cuda")
-        if container.tpu_decode_bytes(comp) != data:
-            raise AssertionError(f"cpu parity: l{level} stream does not "
+        if container.torch_decode_bytes(comp) != data:
+            raise AssertionError(f"cpu parity: {name} stream does not "
                                  f"round-trip through the native decoder")
-        log(f"cpu parity l{level} rings_mode=0: 2 x 64 KiB byte-identical to "
-            f"the CPU encode, native round trip ok "
-            f"({time.perf_counter() - t:.1f} s)")
+        log(f"cpu parity {name}: 2 x 64 KiB byte-identical to the CPU "
+            f"encode, native round trip ok ({time.perf_counter() - t:.1f} s)")
 
 
-def phase_e2e(data: bytes) -> dict:
+def _kernel_modules() -> dict:
+    from orz_tpu_torch.kernels import (
+        fence_walk,
+        match_depth,
+        match_depth_masked,
+        symrank,
+        walk_mask,
+    )
+
+    return {"match_depth": match_depth,
+            "match_depth_masked": match_depth_masked,
+            "fence_walk": fence_walk, "walk_mask": walk_mask,
+            "symrank": symrank}
+
+
+def e2e(data: bytes, level: int, path_kernels) -> dict:
+    """Two passes of torch_encode_bytes at `level` (counts reset just
+    before the first and read just after it) and a native decode."""
     import torch
 
-    from orz_tpu_torch.device import container
+    from orz_tpu_torch.device import batch, container
     from orz_tpu_torch.device.batch import encode_segments_batch
-    from orz_tpu_torch.device.host import _bucket
-    from orz_tpu_torch.kernels import fence_walk, match_depth, symrank
-    from orz_tpu_torch.ops import batched as ob
 
-    kernels = {"match_depth": match_depth, "fence_walk": fence_walk,
-               "symrank": symrank}
-    encode_segments_batch([data[:4096]], 1, device="cuda")  # warm-up
+    mods = _kernel_modules()
+    encode_segments_batch([data[:4096]], level, device="cuda")  # warm-up
     torch.cuda.synchronize()
-    for mod in kernels.values():
+    for mod in mods.values():
         mod.launches = 0
     container.segment_retries = 0
+    batch.otz1_fallbacks = 0
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    comp = container.torch_encode_bytes(data, level=1, device="cuda")
+    comp = container.torch_encode_bytes(data, level=level, device="cuda")
     cold_s = time.perf_counter() - t
-    launches = {k: mod.launches for k, mod in kernels.items()}
+    launches = {k: mod.launches for k, mod in mods.items()}
     retries = container.segment_retries
+    fallbacks = batch.otz1_fallbacks
     peak = torch.cuda.max_memory_allocated()
-    log(f"e2e encode (first pass): {len(data)} -> {len(comp)} bytes, "
-        f"{cold_s:.2f} s, launches {launches}, retries {retries}")
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"e2e: kernel {k} never launched")
+    log(f"e2e l{level} encode (first pass): {len(data)} -> {len(comp)} bytes, "
+        f"{cold_s:.2f} s, launches {launches}, segment_retries {retries}, "
+        f"OTZ1-fallback segments {fallbacks}")
+    for k in path_kernels:
+        if launches[k] <= 0:
+            raise AssertionError(f"e2e l{level}: kernel {k} never launched")
     if retries:
-        raise AssertionError(f"e2e: {retries} segments went through the "
-                             f"per-segment retry")
+        raise AssertionError(f"e2e l{level}: {retries} segments went through "
+                             f"the per-segment retry")
 
     t = time.perf_counter()
-    comp2 = container.torch_encode_bytes(data, level=1, device="cuda")
+    comp2 = container.torch_encode_bytes(data, level=level, device="cuda")
     warm_s = time.perf_counter() - t
     if comp2 != comp:
-        raise AssertionError("e2e: second pass produced different bytes")
+        raise AssertionError(f"e2e l{level}: second pass produced different "
+                             f"bytes")
     t = time.perf_counter()
-    back = container.tpu_decode_bytes(comp)
+    back = container.torch_decode_bytes(comp)
     dec_s = time.perf_counter() - t
     if back != data:
-        raise AssertionError("e2e: native decode does not round-trip")
-    log(f"e2e round trip ok: ratio {len(comp) / len(data):.6f}, encode "
-        f"(warm pass) {len(data) / 1e6 / warm_s:.3f} MB/s "
+        raise AssertionError(f"e2e l{level}: native decode does not "
+                             f"round-trip")
+    log(f"e2e l{level} round trip ok: ratio {len(comp) / len(data):.6f}, "
+        f"encode (warm pass) {len(data) / 1e6 / warm_s:.3f} MB/s "
         f"({warm_s:.3f} s), native decode {dec_s:.3f} s, peak device "
         f"memory {peak / 2**30:.3f} GiB")
+    return launches
 
-    # per-stage device time of one 4 x 8 MiB batch, synchronised stages
-    bufs, lens = _batch_inputs(data, 8 * MIB, 4)
-    stages = {}
+
+def phase_stages(data: bytes) -> None:
+    """Per-stage times of one 4 x 8 MiB l2 batch, read through
+    encode_segments_batch's stage hook, each stage synchronised."""
+    import torch
+
+    from orz_tpu_torch.device.batch import encode_segments_batch
+
+    segs = [data[i * 8 * MIB:(i + 1) * 8 * MIB] for i in range(4)]
+    stages: dict[str, float] = {}
 
     def timed(name, fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        stages[name] = (time.perf_counter() - t0) * 1e3
+        stages[name] = stages.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
         return out
 
-    st, ni, pk1, bq, bro, b2, _ = timed(
-        "FRONT", lambda: ob.front_body_b(bufs, lens, 8))
-    m_cap = _bucket(int(ni.max()), 1 << 14, 2)
-    items, _, _ = timed("MID", lambda: ob.mid_body_b(st, ni, pk1, bq, bro,
-                                                     b2, lens, m_cap))
-    timed("BACK", lambda: ob.back_body_b(items, 1 << 21, 4))
-    log("e2e stage times, one 4 x 8 MiB batch (ms): "
-        + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()))
-    return launches
+    t = time.perf_counter()
+    encode_segments_batch(segs, 2, device="cuda", stage=timed)
+    wall = (time.perf_counter() - t) * 1e3
+    total = sum(stages.values())
+    log("e2e l2 stage times, one 4 x 8 MiB batch (ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in stages.items())
+        + f"; sum {total:.1f} ms of {wall:.1f} ms wall, "
+        f"{4 * 8 * MIB / 1e3 / wall:.3f} MB/s")
 
 
-def phase_profile(data: bytes) -> None:
+def phase_profile(data: bytes, level: int) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from orz_tpu_torch.device.batch import encode_segments_batch
 
     segs = [data[i * 8 * MIB:(i + 1) * 8 * MIB] for i in range(4)]
-    encode_segments_batch(segs, 1, device="cuda")  # warm
+    encode_segments_batch(segs, level, device="cuda")  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        encode_segments_batch(segs, 1, device="cuda")
+        encode_segments_batch(segs, level, device="cuda")
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    path = os.path.join(ROOT, "build", "smoke_profile.json")
+    path = os.path.join(ROOT, "build", f"smoke_profile_l{level}.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     prof.export_chrome_trace(path)
     with open(path) as f:
@@ -387,18 +568,22 @@ def phase_profile(data: bytes) -> None:
     for e in dev:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
     total_ms = sum(by_name.values())
-    log(f"profile, one warm 4 x 8 MiB batch: wall {wall_ms:.1f} ms, device "
-        f"busy {busy_us / 1e3:.1f} ms (sum of device events "
+    log(f"profile l{level}, one warm 4 x 8 MiB batch: wall {wall_ms:.1f} ms, "
+        f"device busy {busy_us / 1e3:.1f} ms (sum of device events "
         f"{total_ms:.1f} ms), idle share {1 - busy_us / 1e3 / wall_ms:.3f}")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"  {ms:9.3f} ms {ms / total_ms:6.1%}  {name[:90]}")
 
 
 KERNEL_INFO = {
     "match_depth": ("orz_tpu_torch/csrc/match_depth.cu",
                     "orz_tpu/ops/match_pallas.py:258"),
+    "match_depth_masked": ("orz_tpu_torch/csrc/match_depth.cu",
+                           "orz_tpu/ops/match_pallas.py:63"),
     "fence_walk": ("orz_tpu_torch/csrc/fence_walk.cu",
                    "orz_tpu/ops/walk_pallas.py:116"),
+    "walk_mask": ("orz_tpu_torch/csrc/fence_walk.cu",
+                  "orz_tpu/ops/walk_pallas.py:171"),
     "symrank": ("orz_tpu_torch/csrc/symrank.cu",
                 "orz_tpu/ops/symrank_pallas.py:204"),
 }
@@ -420,11 +605,15 @@ def main() -> int:
         f"({time.perf_counter() - t:.1f} s)")
     rec = phase_kernels(data)
     phase_cpu_parity(args.seed)
-    launches = phase_e2e(data)
-    phase_profile(data)
+    launches = e2e(data, 2, list(KERNEL_INFO))  # the main path
+    phase_stages(data)
+    e2e(data, 1, ["match_depth", "fence_walk", "symrank"])
+    phase_profile(data, 2)
+    phase_profile(data, 1)
     kernels = [
         {"name": k, "route": "cuda", "source": KERNEL_INFO[k][0],
-         "replaces": KERNEL_INFO[k][1], "launches": launches[k], **rec[k]}
+         "replaces": KERNEL_INFO[k][1], "launches": launches[k],
+         "library_ms": None, **rec[k]}
         for k in KERNEL_INFO
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,18 +1,25 @@
-"""PyTorch/CUDA port of the OTZ device encoder (the OTZ1 slice).
+"""PyTorch/CUDA port of the OTZ device encoder.
 
 Layout:
 
-- ``device/``: the batched encode (``batch.encode_segments_batch``), the ORZT
-  container entry points (``container.torch_encode``) and the host helpers
-  copied from the JAX package's jax-importing modules (``host``).
+- ``device/``: the batched encode (``batch.encode_segments_batch``: OTZ1 at
+  l0/l1, the OTZ2 default from l2), the ORZT container entry points
+  (``container.torch_encode`` / ``torch_decode``), the container framing
+  (``pcontainer``) and the host helpers (``host``).
 - ``ops/``: the torch bodies of the batched encoder, named after their JAX
-  counterparts in ``orz_tpu/ops/batched.py``.
+  counterparts in ``orz_tpu/ops/batched.py`` (``batched``: FRONT, the
+  analyses, MID, BACK; ``otz2``: the QUALITY steps and MID2).
 - ``kernels/``: one wrapper per hand-written CUDA kernel, each with its
   plain torch version beside it and a launch counter.
 - ``csrc/``: the CUDA sources, built with nvcc into one shared library at
   first use.
+- ``spec.py``, ``bitio.py``: the format constants and knobs, and the bit
+  writer.
 
-The format, the sequential oracle and the decoder are shared with the JAX
-package (``orz_tpu.device.spec``, ``refcodec``, ``container.tpu_decode``);
-this package never imports jax.
+The package imports nothing of the JAX package ``orz_tpu``: the format
+constants, the bit writer, the container framing and the native decoder's
+loader are copies (``spec``, ``bitio``, ``device/pcontainer``,
+``device/container``), which ``tests/test_torch_host.py`` pins to their
+originals.  The decoder itself is built from ``csrc/otz_core.cpp`` at the
+repository root, the same source the JAX package builds.
 """

@@ -1,11 +1,13 @@
-// K3: the fence-block item walk.
+// K3 and K4: the fence-block item walk.
 //
-// Replaces the Pallas kernel orz_tpu/ops/walk_pallas.py walk_items_pallas
-// (_call with _rec_kernel over _walk_body), and computes what its sibling
-// walk_mask_pallas (_mask_kernel) computes.  Inside each FENCE-position block
-// of a segment, the walk follows next(p) = p + len(p) from the block base:
-// jumps are clipped to [1, FENCE] relative to the base and every step
-// advances at least one position.  Every visited position is an item start.
+// Replaces the Pallas kernels of orz_tpu/ops/walk_pallas.py: K3
+// walk_items_pallas (_call with _rec_kernel over _walk_body) and K4
+// walk_mask_pallas (_mask_kernel), whose output this kernel's mask is; both
+// wrappers (kernels/fence_walk.py, kernels/walk_mask.py) launch this entry
+// point.  Inside each FENCE-position block of a segment, the walk follows
+// next(p) = p + len(p) from the block base: jumps are clipped to [1, FENCE]
+// relative to the base and every step advances at least one position.
+// Every visited position is an item start.
 //
 // On the TPU the walk advanced 128 blocks per vector step with a one-hot
 // compare-extract over a (FENCE, 128) VMEM tile, then the REC records were

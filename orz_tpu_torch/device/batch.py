@@ -1,11 +1,15 @@
-"""Batched OTZ1 device encode in torch: B same-bucket segments per call.
+"""Batched device encode in torch: B same-bucket segments per call.
 
-Mirrors ``orz_tpu/device/batch.py`` ``encode_segments_batch`` for
-``rings_mode=0`` (levels 0 and 1, and level 2 with ``OTZ2=0``): FRONT
-(analysis, parse, fence walk) -> one host sync for the item bucket -> MID
-(item fields) -> BACK (census, symrank, entropy, packing) -> one fetch of
-meta and payload words -> host stream assembly.  Payloads are
-byte-identical to the JAX chain's.
+Mirrors ``orz_tpu/device/batch.py`` ``encode_segments_batch``.  Levels
+without OTZ2 (l0, l1, or ``rings_mode=0``): FRONT (analysis, parse, fence
+walk) -> one host sync for the item bucket -> MID (item fields) -> BACK
+(census, symrank, entropy, packing) -> one fetch of meta and payload words
+-> host stream assembly.  With OTZ2 (``rings_mode=1``, the l2 default):
+FRONT -> QUALITY (the masked re-parse schedule and the conform analyses of
+its last two iterates) -> one fetch of both iterates' item counts -> MID2
+(conform, repair, emit, the best-of-2 pick) -> BACK.  A segment whose
+repair failed is re-encoded through the OTZ1 MID and BACK from its FRONT
+outputs, at B=1.  Payloads are byte-identical to the JAX chain's.
 """
 
 from __future__ import annotations
@@ -13,13 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from orz_tpu.device.spec import (
-    CHUNK_INPUT_DEFAULT,
-    candidate_depth,
-    n_chunks_for,
-    otz2_enabled,
-)
-from orz_tpu.golden.bitio import BitEncoder
+from orz_tpu_torch.bitio import BitEncoder
 from orz_tpu_torch.device.host import (
     _FETCH_GRANULE,
     _bucket,
@@ -27,7 +25,102 @@ from orz_tpu_torch.device.host import (
     assemble_segment_np,
     pad_batch,
 )
-from orz_tpu_torch.ops.batched import back_body_b, front_body_b, mid_body_b
+from orz_tpu_torch.ops.batched import (
+    back_body_b,
+    front_body_b,
+    masked_plan_b,
+    mid_body_b,
+    plan_stats_b,
+)
+from orz_tpu_torch.ops.otz2 import (
+    conform_mask_b,
+    conform_repair_b,
+    emit_items2_b,
+    iter2_full_step_b,
+    iter2_mask_step_b,
+)
+from orz_tpu_torch.spec import (
+    CHUNK_INPUT_DEFAULT,
+    OTZ2_CONFORM_SHIFTS,
+    candidate_depth,
+    n_chunks_for,
+    otz2_enabled,
+    otz2_schedule,
+)
+
+# OTZ2 segments re-encoded through OTZ1 because their repair failed, since
+# the last reset.
+otz1_fallbacks = 0
+
+
+def quality_scan_body(bufs, seg_lens, mask0, ni0, head):
+    """The masked plan and the head of the iteration schedule (all but the
+    last two steps) as mask-carry steps: (plan, mask, ni)."""
+    plan = masked_plan_b(bufs, seg_lens)
+    mask, ni = mask0, ni0
+    for depth in head:
+        mask, ni = iter2_mask_step_b(bufs, seg_lens, depth, mask, plan)
+    return plan, mask, ni
+
+
+def quality_tail_body(bufs, seg_lens, plan, starts0, ni0, pk0, mask, tail,
+                      c_shifts: int):
+    """The final two full iterates and their conform analyses: two tuples
+    (starts, n_items, pk1, bestq2, bestlen2), A the second-to-last iterate
+    and B the last.  With a one-step schedule, A is the FRONT parse."""
+    if len(tail) == 2:
+        st_a, ni_a, pk_a, mask_a = iter2_full_step_b(bufs, seg_lens, tail[0],
+                                                     mask, plan)
+    else:
+        st_a, ni_a, pk_a, mask_a = starts0, ni0, pk0, mask
+    st_b, ni_b, pk_b, mask_b = iter2_full_step_b(bufs, seg_lens, tail[-1],
+                                                 mask_a, plan)
+    bq_a, bl_a = conform_mask_b(bufs, seg_lens, c_shifts, mask_a, plan)
+    bq_b, bl_b = conform_mask_b(bufs, seg_lens, c_shifts, mask_b, plan)
+    return (st_a, ni_a, pk_a, bq_a, bl_a), (st_b, ni_b, pk_b, bq_b, bl_b)
+
+
+def quality_split(schedule) -> tuple[tuple[int, ...], tuple[int, ...], int]:
+    """QUALITY's split of an OTZ2 schedule, as JAX's driver splits it: the
+    head (mask-carry scan steps; JAX groups it into same-depth runs for
+    ``lax.scan``, here it is a Python loop), the last two steps (full
+    iterates) and the conform analyses' shift count."""
+    return (tuple(schedule[:-2]), tuple(schedule[-2:]),
+            OTZ2_CONFORM_SHIFTS or schedule[-1])
+
+
+def m2_cap_for(ni_max: int) -> int:
+    """MID2's item bucket for the larger iterate's item count."""
+    ni_max = max(ni_max, 1)
+    return _bucket(ni_max + max(ni_max // 4, 4096), 1 << 14, 2)
+
+
+def mid2_body(bufs, seg_lens, it_a, it_b, m2_cap: int):
+    """Conform, repair and emit the newest iterate B; when some segment's B
+    failed or demoted more than max(1024, n_items/128) items (anomalous),
+    emit A too and keep, per segment, B unless it failed or A demoted
+    fewer.  Returns (items, ok, r1, rounds, dem_a, dem_b)."""
+
+    def emit_one(st, ni, pk, bq, bl):
+        start, kind, length, q, rep0, ro, predi, n2, ok = conform_repair_b(
+            st[:, :m2_cap], ni, pk, bq, bl, bufs, seg_lens, words_mode=True)
+        items = emit_items2_b(start, kind, length, q, rep0, ro, n2, pk, bufs,
+                              seg_lens, predi=predi)
+        return items, ok, items.n_items - ni
+
+    items_b, ok_b, dem_b = emit_one(*it_b)
+    thr = torch.clamp(it_b[1] >> 7, min=1024)
+    if bool((~ok_b | (dem_b > thr)).any()):  # anomalous
+        items_a, ok_a, dem_a = emit_one(*it_a)
+        use_b = ok_b & ((dem_b <= thr) | ~ok_a | (dem_b <= dem_a))
+        items = type(items_b)(*(
+            torch.where(use_b.view((-1,) + (1,) * (a.dim() - 1)), b, a)
+            for a, b in zip(items_a, items_b)))
+        ok = ok_a | ok_b
+    else:
+        items, ok, dem_a = items_b, ok_b, dem_b
+    r1, rounds = plan_stats_b(items.sr_ctx, items.n_items)
+    return items, ok, r1, rounds, dem_a, dem_b
 
 
 def _empty_payload(chunk_input: int) -> bytes:
@@ -37,34 +130,72 @@ def _empty_payload(chunk_input: int) -> bytes:
     return enc.finish()
 
 
+def _run(name: str, fn):
+    """The default ``stage`` of the drivers: run the stage."""
+    return fn()
+
+
+def _back_and_fetch(items, chunk_input: int, c_max: int):
+    """BACK, then one fetch of meta and of the payload words it needs."""
+    out = back_body_b(items, chunk_input, c_max)
+    metas = out.meta.cpu().numpy()
+    total_words = int(metas[:, 3].max())
+    k_fetch = min(out.words.shape[1],
+                  -(-max(total_words, 1) // _FETCH_GRANULE) * _FETCH_GRANULE)
+    return metas, out.words[:, :k_fetch].cpu().numpy().astype(np.uint32)
+
+
+def _assemble(data: bytes, meta, words, chunk_input: int,
+              rings_mode: int) -> bytes:
+    enc = BitEncoder()
+    enc.encode_varint(len(data))
+    enc.encode_varint(chunk_input)
+    return assemble_segment_np(enc, meta, words, len(data), chunk_input,
+                               rings_mode=rings_mode)
+
+
+def encode_otz1(datas, front, seg_lens, chunk_input: int, c_max: int,
+                stage=_run) -> list[bytes]:
+    """OTZ1 MID and BACK from FRONT's outputs ``front`` = (starts, n_items,
+    pk1, bestq, bestro, bufs): the rings_mode=0 path, and the fallback of
+    an OTZ2 segment whose repair failed (at B=1)."""
+    starts, n_items, pk1, bestq, bestro, bufs = front
+    m_cap = _bucket(max(int(n_items.max()), 1), 1 << 14, 2)
+    items, _r1, _rounds = stage("MID", lambda: mid_body_b(
+        starts, n_items, pk1, bestq, bestro, bufs, seg_lens, m_cap))
+    metas, words = stage("BACK", lambda: _back_and_fetch(items, chunk_input,
+                                                         c_max))
+    return [_assemble(d, metas[b], words[b], chunk_input, 0)
+            for b, d in enumerate(datas)]
+
+
 def encode_segments_batch(
     datas: list[bytes],
-    level: int = 1,
+    level: int = 2,
     chunk_input: int = CHUNK_INPUT_DEFAULT,
     rings_mode: int | None = None,
     cap: int | None = None,
     device: str | torch.device = "cuda",
+    stage=_run,
 ) -> list[bytes]:
-    """Encode B segments through the batched OTZ1 chain on `device`;
-    returns the payloads in order.  All segments share one `cap` bucket
-    (default: the bucket of the largest)."""
+    """Encode B segments through the batched chain on `device`; returns the
+    payloads in order.  All segments share one `cap` bucket (default: the
+    bucket of the largest).  rings_mode: None = the level's default (OTZ2
+    from level 2); 0/1 force OTZ1/OTZ2.  Each device stage (FRONT, then
+    QUALITY scan, QUALITY tail, MID2 or MID, then BACK with its fetch) runs
+    as ``stage(name, fn)``, which returns ``fn()``: a caller may time it."""
     if not datas or any(d is None for d in datas):
         raise ValueError("encode_segments_batch needs a list of bytes")
     if rings_mode is None:
         rings_mode = int(otz2_enabled(level))
-    if rings_mode:
-        raise NotImplementedError(
-            "rings_mode=1 (OTZ2 item-start rings, the l2 default) is the l2 "
-            "slice of the port (QUALITY + MID2), not ported yet; pass "
-            "rings_mode=0 or set OTZ2=0")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("encode_segments_batch: CUDA device requested "
                            "but torch.cuda.is_available() is false")
     if any(len(d) == 0 for d in datas):  # empty segments: host-only framing
         full = [d for d in datas if d]
-        enc = iter(encode_segments_batch(full, level, chunk_input, 0, cap,
-                                         device) if full else [])
+        enc = iter(encode_segments_batch(full, level, chunk_input, rings_mode,
+                                         cap, device, stage) if full else [])
         return [next(enc) if d else _empty_payload(chunk_input)
                 for d in datas]
     if cap is None:
@@ -74,28 +205,40 @@ def encode_segments_batch(
     bufs = torch.from_numpy(bufs_np).to(device)
     seg_lens = torch.from_numpy(lens_np).to(device)
 
-    starts, n_items, pk1, bestq, bestro, bufs, _mask = front_body_b(
-        bufs, seg_lens, candidate_depth(level))
-    ni_max = int(n_items.max())
-    m_cap = _bucket(max(ni_max, 1), 1 << 14, 2)
-    items, _r1, _rounds = mid_body_b(starts, n_items, pk1, bestq, bestro,
-                                     bufs, seg_lens, m_cap)
-    del starts, pk1, bestq, bestro, _mask
-    out = back_body_b(items, chunk_input, c_max)
+    starts, n_items, pk1, bestq, bestro, bufs, mask0 = stage(
+        "FRONT", lambda: front_body_b(bufs, seg_lens, candidate_depth(level)))
+    front = (starts, n_items, pk1, bestq, bestro, bufs)
+    if not rings_mode:
+        del mask0
+        return encode_otz1(datas, front, seg_lens, chunk_input, c_max, stage)
+
+    head, tail, c_shifts = quality_split(otz2_schedule(level))
+    plan, mask, _ = stage("QUALITY scan", lambda: quality_scan_body(
+        bufs, seg_lens, mask0, n_items, head))
+    del mask0
+    it_a, it_b = stage("QUALITY tail", lambda: quality_tail_body(
+        bufs, seg_lens, plan, starts, n_items, pk1, mask, tail, c_shifts))
+    del plan, mask
+    m2_cap = m2_cap_for(int(torch.stack([it_a[1], it_b[1]]).max()))  # fetch
+    items, ok = stage("MID2", lambda: mid2_body(bufs, seg_lens, it_a, it_b,
+                                                m2_cap))[:2]
+    del it_a, it_b
+    ok_host = ok.cpu().numpy()
+    if ok_host.all():
+        del front, starts, pk1, bestq, bestro
+    metas, words = stage("BACK", lambda: _back_and_fetch(items, chunk_input,
+                                                         c_max))
     del items
 
-    metas = out.meta.cpu().numpy()
-    total_words = int(metas[:, 3].max())
-    k_fetch = min(out.words.shape[1],
-                  -(-max(total_words, 1) // _FETCH_GRANULE) * _FETCH_GRANULE)
-    words = out.words[:, :k_fetch].cpu().numpy().astype(np.uint32)
-
+    global otz1_fallbacks
     payloads = []
     for b, data in enumerate(datas):
-        enc = BitEncoder()
-        enc.encode_varint(len(data))
-        enc.encode_varint(chunk_input)
-        payloads.append(assemble_segment_np(enc, metas[b], words[b],
-                                            len(data), chunk_input,
-                                            rings_mode=0))
+        if ok_host[b]:
+            payloads.append(_assemble(data, metas[b], words[b], chunk_input,
+                                      rings_mode))
+        else:  # repair failed: this segment's OTZ1 encode
+            otz1_fallbacks += 1
+            payloads += encode_otz1(
+                [data], tuple(t[b:b + 1] for t in front),
+                seg_lens[b:b + 1], chunk_input, c_max, stage)
     return payloads

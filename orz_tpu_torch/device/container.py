@@ -1,27 +1,34 @@
-"""ORZT container encode on the torch port.
+"""ORZT container encode and decode on the torch port.
 
-``torch_encode`` mirrors ``orz_tpu/device/container.py`` ``tpu_encode`` on
-the shared ``orz_tpu.pcontainer.pipe_encode``: segments stream through the
-port's batched OTZ1 chain, ``batch`` at a time.  The stream is the same
-ORZT container, so decode stays the shared native decoder
-(``orz_tpu.device.container.tpu_decode`` / ``tpu_decode_bytes``).
+``torch_encode`` mirrors ``orz_tpu/device/container.py`` ``tpu_encode``:
+segments stream through the port's batched chain, ``batch`` at a time,
+into the ORZT container (``device/pcontainer.py``).  ``torch_decode``
+mirrors ``tpu_decode``: each segment goes through the native C++ decoder
+built from ``csrc/otz_core.cpp`` at the repository root (the loader below
+is a copy of ``orz_tpu/native/otz.py``), in parallel threads.
 """
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
 import io
+import os
+import subprocess
+import threading
 
+import numpy as np
 import torch
 
-from orz_tpu.device.container import tpu_decode, tpu_decode_bytes
-from orz_tpu.device.spec import CHUNK_INPUT_DEFAULT
-from orz_tpu.pcontainer import TPU_MAGIC, pipe_encode
-from orz_tpu.progress import ProgressLogger
 from orz_tpu_torch.device.batch import encode_segments_batch
 from orz_tpu_torch.device.host import _bucket_capacity
-
-__all__ = ["torch_encode", "torch_encode_bytes",
-           "tpu_decode", "tpu_decode_bytes"]  # decode: the shared decoder
+from orz_tpu_torch.device.pcontainer import (
+    TPU_MAGIC,
+    ProgressLogger,
+    pipe_decode,
+    pipe_encode,
+)
+from orz_tpu_torch.spec import CHUNK_INPUT_DEFAULT
 
 DEFAULT_SEGMENT_SIZE = 1 << 23  # 8 MiB
 DEFAULT_BATCH = 4  # segments per batched device call
@@ -34,7 +41,7 @@ segment_retries = 0
 def torch_encode(
     source,
     target,
-    level: int = 1,
+    level: int = 2,
     segment_size: int = DEFAULT_SEGMENT_SIZE,
     chunk_input: int = CHUNK_INPUT_DEFAULT,
     batch: int = DEFAULT_BATCH,
@@ -43,8 +50,8 @@ def torch_encode(
     device: str | torch.device = "cuda",
 ) -> None:
     """Stream-encode into the ORZT container, `batch` segments per device
-    call.  Level 2 with OTZ2 on (rings_mode=1) is the port's l2 slice and
-    raises NotImplementedError until it lands."""
+    call.  rings_mode: None = the level's default (OTZ2 from level 2);
+    0/1 force OTZ1/OTZ2."""
     batch = max(batch, 1)
     cap = _bucket_capacity(segment_size)
 
@@ -62,11 +69,88 @@ def torch_encode(
         return encode_segments_batch([seg], level, chunk_input,
                                      rings_mode=rings_mode, device=device)[0]
 
-    pipe_encode(source, target, encode_one, TPU_MAGIC, segment_size, batch,
-                progress, encode_batch=encode_batch, batch_size=batch)
+    pipe_encode(source, target, encode_batch, encode_one, TPU_MAGIC,
+                segment_size, batch, progress)
 
 
-def torch_encode_bytes(data: bytes, level: int = 1, **kw) -> bytes:
+def torch_encode_bytes(data: bytes, level: int = 2, **kw) -> bytes:
     src, dst = io.BytesIO(data), io.BytesIO()
     torch_encode(src, dst, level=level, **kw)
+    return dst.getvalue()
+
+
+# --- the native segment decoder (orz_tpu/native/otz.py) ----------------------
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_DECODER_SRC = os.path.join(_REPO_ROOT, "csrc", "otz_core.cpp")
+_BUILD_DIR = os.path.join(_REPO_ROOT, "build")
+
+_decoder = None
+_decoder_lock = threading.Lock()
+
+
+def _build_decoder() -> str:
+    with open(_DECODER_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    so_path = os.path.join(_BUILD_DIR, f"libotz_core_{digest}.so")
+    if not os.path.exists(so_path):
+        tmp = so_path + f".tmp.{os.getpid()}"
+        subprocess.run(
+            ["g++", "-O3", "-std=c++17", "-fPIC", "-shared", "-fno-exceptions",
+             "-funroll-loops", _DECODER_SRC, "-o", tmp],
+            check=True, capture_output=True,
+        )
+        os.replace(tmp, so_path)
+    return so_path
+
+
+def decoder_library():
+    """The native decoder (built with g++ on first call)."""
+    global _decoder
+    with _decoder_lock:
+        if _decoder is None:
+            lib = ctypes.CDLL(_build_decoder())
+            lib.otz_raw_len.restype = ctypes.c_int64
+            lib.otz_raw_len.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+            lib.otz_decode_segment.restype = ctypes.c_int64
+            lib.otz_decode_segment.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_int64,
+            ]
+            _decoder = lib
+    return _decoder
+
+
+def decode_segment(payload: bytes, max_raw_len: int = 1 << 31) -> bytes:
+    """One OTZ segment payload -> its bytes.  max_raw_len caps the size a
+    header may claim."""
+    lib = decoder_library()
+    src = np.frombuffer(payload, dtype=np.uint8)
+    raw_len = lib.otz_raw_len(src.ctypes.data, src.size)
+    if raw_len < 0 or raw_len > max_raw_len:
+        raise ValueError("invalid OTZ segment header")
+    if raw_len == 0:
+        return b""
+    dst = np.empty(raw_len, dtype=np.uint8)
+    rc = lib.otz_decode_segment(src.ctypes.data, src.size, dst.ctypes.data,
+                                dst.size)
+    if rc < 0:
+        raise ValueError(f"invalid OTZ segment (native decoder error {rc})")
+    return dst.tobytes()
+
+
+def torch_decode(source, target, num_streams: int | None = None,
+                 progress: ProgressLogger | None = None) -> None:
+    """Decode an ORZT container, one thread per core by default."""
+    if num_streams is None:
+        num_streams = os.cpu_count() or 4
+    pipe_decode(source, target, decode_segment, TPU_MAGIC, num_streams,
+                progress)
+
+
+def torch_decode_bytes(data: bytes, **kw) -> bytes:
+    src, dst = io.BytesIO(data), io.BytesIO()
+    torch_decode(src, dst, **kw)
     return dst.getvalue()

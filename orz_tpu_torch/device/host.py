@@ -15,14 +15,14 @@ from typing import NamedTuple
 
 import numpy as np
 
-from orz_tpu.device.spec import (
+from orz_tpu_torch.bitio import BitEncoder
+from orz_tpu_torch.spec import (
     PAD_FRONT,
     PAD_TAIL,
     SYMRANK_NUM_SYMBOLS,
     TABC_SIZE,
     n_chunks_for,
 )
-from orz_tpu.golden.bitio import BitEncoder
 
 N_SYM = SYMRANK_NUM_SYMBOLS
 

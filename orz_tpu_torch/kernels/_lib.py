@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``orz_tpu_torch/csrc/*.cu``).
 
-All sources compile with nvcc into ONE shared library with a plain C
-interface, keyed by a hash of the sources (like ``orz_tpu/native/otz.py``)
-under the repository's ``build/`` directory, at first use.  It is loaded
+Each source compiles with its own nvcc process, all started together,
+and the objects link into ONE shared library with a plain C interface,
+keyed by a hash of the sources, under the repository's ``build/``
+directory, at first use.  It is loaded
 with ctypes: every pointer and the stream are ``c_void_p``, and every entry
 point returns ``cudaGetLastError()`` after its launch, which ``check``
 turns into an exception.
@@ -27,8 +28,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # entry point -> argtypes (pointers, ints, then the stream)
 _SIGNATURES = {
-    "otz_match_depth": [_P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "otz_match_depth": [_P] * 9 + [_I] * 13 + [_P],
     "otz_fence_walk": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "otz_symrank": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
@@ -67,13 +67,31 @@ def build() -> str:
     so_path = os.path.join(_BUILD_DIR,
                            f"liborz_tpu_torch_{h.hexdigest()[:16]}.so")
     if not os.path.exists(so_path):
+        nvcc = _nvcc()
+        tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+        objs = [os.path.join(_BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
+                for s in srcs]
+        procs = [subprocess.Popen(
+            [nvcc, "-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler",
+             "-fPIC", "-c", src, "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(srcs, objs)]
+        failed = []
+        for src, proc in zip(srcs, procs):
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(src)}: {out}")
         tmp = f"{so_path}.tmp.{os.getpid()}"
-        cmd = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-o", tmp] + srcs
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+        if not failed:
+            res = subprocess.run([nvcc, "-shared", "-o", tmp] + objs,
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                failed.append(f"link: {res.stdout}{res.stderr}")
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         os.replace(tmp, so_path)
     return so_path
 

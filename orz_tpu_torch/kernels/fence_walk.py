@@ -12,8 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from orz_tpu.device.spec import FENCE, PAD_FRONT
 from orz_tpu_torch.kernels import _lib
+from orz_tpu_torch.spec import FENCE, PAD_FRONT
 
 launches = 0  # kernel launches (not plain-version calls) since last reset
 
@@ -41,17 +41,20 @@ def fence_walk_mask_plain(nxt: torch.Tensor, seg_lens: torch.Tensor):
     return mask[:, :n].contiguous()
 
 
-def fence_walk_mask(nxt: torch.Tensor, seg_lens: torch.Tensor):
-    """K3 on CUDA tensors; the plain walk on CPU tensors."""
-    bsz, n = nxt.shape
+def check_inputs(name: str, nxt: torch.Tensor, seg_lens: torch.Tensor):
     if nxt.dtype != torch.int32 or seg_lens.dtype != torch.int32 \
-            or tuple(seg_lens.shape) != (bsz,):
-        raise ValueError("fence_walk: nxt (B, n) and seg_lens (B,) must be "
+            or nxt.dim() != 2 or tuple(seg_lens.shape) != (nxt.shape[0],):
+        raise ValueError(f"{name}: nxt (B, n) and seg_lens (B,) must be "
                          "int32")
-    if nxt.device.type == "cpu":
-        return fence_walk_mask_plain(nxt, seg_lens)
+
+
+def launch_walk(name: str, nxt: torch.Tensor, seg_lens: torch.Tensor):
+    """Run the walk kernel on CUDA tensors; returns the start mask.  Shared
+    by K3 and K4 (``kernels/walk_mask.py``), which count their own
+    launches."""
+    bsz, n = nxt.shape
     end = (PAD_FRONT + seg_lens).int()
-    _lib.require_cuda("fence_walk", nxt, end)
+    _lib.require_cuda(name, nxt, end)
     mask = torch.zeros((bsz, n), dtype=torch.bool, device=nxt.device)
     n_blocks = -(-(n - PAD_FRONT) // FENCE)
     rc = _lib.library().otz_fence_walk(
@@ -59,6 +62,15 @@ def fence_walk_mask(nxt: torch.Tensor, seg_lens: torch.Tensor):
         FENCE, PAD_FRONT, _lib.stream_ptr(nxt.device),
     )
     _lib.check(rc, "otz_fence_walk")
+    return mask
+
+
+def fence_walk_mask(nxt: torch.Tensor, seg_lens: torch.Tensor):
+    """K3 on CUDA tensors; the plain walk on CPU tensors."""
+    check_inputs("fence_walk", nxt, seg_lens)
+    if nxt.device.type == "cpu":
+        return fence_walk_mask_plain(nxt, seg_lens)
+    mask = launch_walk("fence_walk", nxt, seg_lens)
     global launches
     launches += 1
     return mask

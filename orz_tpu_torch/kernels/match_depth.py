@@ -4,13 +4,16 @@ Replaces ``orz_tpu/ops/match_pallas.py`` ``match_depth_pallas`` with
 ``mask_s=None``.  Inputs are ``(B, n)`` int32 arrays sorted by (match key,
 position) and ``dw_s`` ``(B, N_DW, n)`` int32 (uint32 bit patterns);
 outputs ``(best_q, best_ro, best_len)`` ``(B, n)`` int32 in sorted order.
+``match_depth_plain`` and ``launch`` serve K2 (``match_depth_masked``) too.
 """
 
 from __future__ import annotations
 
 import torch
 
-from orz_tpu.device.spec import (
+from orz_tpu_torch.device.host import N_DW
+from orz_tpu_torch.kernels import _lib
+from orz_tpu_torch.spec import (
     FAR_RO_1,
     FAR_RO_2,
     FENCE,
@@ -19,8 +22,6 @@ from orz_tpu.device.spec import (
     RING,
     _FAR_GATE,
 )
-from orz_tpu_torch.device.host import N_DW
-from orz_tpu_torch.kernels import _lib
 
 launches = 0  # kernel launches (not plain-version calls) since last reset
 
@@ -49,59 +50,97 @@ def shift_dn(x: torch.Tensor, j: int, fill: int) -> torch.Tensor:
 
 
 def match_depth_plain(msk, msp, rank_s, dw_s, end, depth: int,
-                      ro_cap: int = RING):
-    """The shifted-tensor loop over j = 1..depth (the TPU kernel's rounds,
-    and the XLA loop before it)."""
+                      ro_cap: int = RING, mask_s=None, near_depth: int = 0,
+                      ro_cap_near: int | None = None):
+    """The TPU kernel's rounds j = 1..depth, one shift at a time: the
+    (slot, candidate) pairs that pass the key, mask and offset gates are
+    compacted and only they compare dwords.  ``mask_s`` None is K1; a
+    (B, n) bool mask is K2 (see ``csrc/match_depth.cu``)."""
+    bsz, n = msk.shape
     end = end.view(-1, 1)
     cap = torch.minimum(FENCE - ((msp - PAD_FRONT) & (FENCE - 1)), end - msp)
     best_s = torch.zeros_like(msk)
     best_q = torch.full_like(msk, -1)
     best_ro = torch.zeros_like(msk)
     best_len = torch.zeros_like(msk)
-    for j in range(1, depth + 1):
+    two_tier = mask_s is not None and ro_cap_near is not None \
+        and ro_cap_near < ro_cap
+    for j in range(1, min(depth, n - 1) + 1):
+        same = torch.zeros_like(msk, dtype=torch.bool)
+        same[:, j:] = msk[:, j:] == msk[:, :-j]
+        if not bool(same.any()):  # sorted keys: no pair at any larger j
+            break
         ro = rank_s - 1 - shift_dn(rank_s, j, 0)
-        ok = (shift_dn(msk, j, -1) == msk) & (ro < ro_cap)
-        lcp = torch.full_like(msk, 4 * N_DW)
-        for t in range(N_DW - 1, -1, -1):
-            x = dw_s[:, t] ^ shift_dn(dw_s[:, t], j, 0)
-            lcp = torch.where(x != 0, 4 * t + lcp_from_xor(x), lcp)
-        lcp = torch.minimum(lcp, cap)
-        ok = ok & (lcp >= min_match_len_for_ro(ro))
-        score = torch.where(ok, lcp * 1024 + (1023 - j), -1)
-        better = score > best_s
-        best_s = torch.maximum(best_s, score)
-        best_q = torch.where(better, shift_dn(msp, j, 0), best_q)
-        best_ro = torch.where(better, ro, best_ro)
-        best_len = torch.where(better, lcp, best_len)
+        ok = same & (ro < ro_cap)
+        if mask_s is not None:
+            ok &= shift_dn(mask_s, j, False)
+            if near_depth and j > near_depth:
+                ok &= mask_s
+        b, i = ok.nonzero(as_tuple=True)
+        if b.numel() == 0:
+            continue
+        x = dw_s[b, :, i] ^ dw_s[b, :, i - j]  # (pairs, N_DW)
+        nz = x != 0
+        t = nz.int().argmax(dim=1)  # first differing dword
+        xt = x.gather(1, t.view(-1, 1)).squeeze(1)
+        lcp = torch.where(nz.any(dim=1), 4 * t + lcp_from_xor(xt), 4 * N_DW)
+        lcp = torch.minimum(lcp, cap[b, i])
+        ro_p = ro[b, i]
+        good = lcp >= min_match_len_for_ro(ro_p)
+        score = torch.where(good, lcp * 1024 + (1023 - j), -1)
+        if two_tier:
+            score = torch.where(good & (ro_p >= ro_cap_near), lcp, score)
+        better = score > best_s[b, i]
+        b, i = b[better], i[better]
+        best_s[b, i] = score[better].int()
+        best_q[b, i] = msp[b, i - j]
+        best_ro[b, i] = ro_p[better]
+        best_len[b, i] = lcp[better].int()
+    return best_q, best_ro, best_len
+
+
+def check_inputs(name: str, msk, msp, rank_s, dw_s, end, depth: int) -> None:
+    bsz, n = msk.shape
+    for arg, t, shape in (("msk", msk, (bsz, n)), ("msp", msp, (bsz, n)),
+                          ("rank_s", rank_s, (bsz, n)),
+                          ("dw_s", dw_s, (bsz, N_DW, n)),
+                          ("end", end, (bsz,))):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {arg} must be int32 {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if not 0 < depth < 1024:  # score packs lcp*1024 + recency
+        raise ValueError(f"{name}: depth {depth} outside [1, 1023]")
+
+
+def launch(name, msk, msp, rank_s, dw_s, end, depth: int, ro_cap: int,
+           mask_s=None, near_depth: int = 0, ro_cap_near: int | None = None):
+    """One launch of ``csrc/match_depth.cu`` on CUDA tensors: K2 when
+    ``mask_s`` is given, else K1.  The callers count their launches."""
+    masks = () if mask_s is None else (mask_s,)
+    _lib.require_cuda(name, msk, msp, rank_s, dw_s, end, *masks)
+    bsz, n = msk.shape
+    best_q = torch.empty_like(msk)
+    best_ro = torch.empty_like(msk)
+    best_len = torch.empty_like(msk)
+    near_cap = ro_cap if ro_cap_near is None else min(ro_cap_near, ro_cap)
+    rc = _lib.library().otz_match_depth(
+        msk.data_ptr(), msp.data_ptr(), rank_s.data_ptr(), dw_s.data_ptr(),
+        None if mask_s is None else mask_s.data_ptr(), end.data_ptr(),
+        best_q.data_ptr(), best_ro.data_ptr(), best_len.data_ptr(), bsz, n,
+        depth, ro_cap, near_depth, near_cap, FENCE, PAD_FRONT,
+        LZ_MATCH_MIN_LEN, _FAR_GATE, FAR_RO_1, FAR_RO_2, N_DW,
+        _lib.stream_ptr(msk.device),
+    )
+    _lib.check(rc, name)
     return best_q, best_ro, best_len
 
 
 def match_depth(msk, msp, rank_s, dw_s, end, depth: int, ro_cap: int = RING):
     """K1 on CUDA tensors; the plain version on CPU tensors."""
-    bsz, n = msk.shape
-    for name, t, shape in (("msk", msk, (bsz, n)), ("msp", msp, (bsz, n)),
-                           ("rank_s", rank_s, (bsz, n)),
-                           ("dw_s", dw_s, (bsz, N_DW, n)),
-                           ("end", end, (bsz,))):
-        if t.dtype != torch.int32 or tuple(t.shape) != shape:
-            raise ValueError(f"match_depth: {name} must be int32 {shape}, "
-                             f"got {t.dtype} {tuple(t.shape)}")
-    if not 0 < depth < 1024:  # score packs lcp*1024 + recency
-        raise ValueError(f"match_depth: depth {depth} outside [1, 1023]")
+    check_inputs("match_depth", msk, msp, rank_s, dw_s, end, depth)
     if msk.device.type == "cpu":
         return match_depth_plain(msk, msp, rank_s, dw_s, end, depth, ro_cap)
-    _lib.require_cuda("match_depth", msk, msp, rank_s, dw_s, end)
-    best_q = torch.empty_like(msk)
-    best_ro = torch.empty_like(msk)
-    best_len = torch.empty_like(msk)
-    rc = _lib.library().otz_match_depth(
-        msk.data_ptr(), msp.data_ptr(), rank_s.data_ptr(), dw_s.data_ptr(),
-        end.data_ptr(), best_q.data_ptr(), best_ro.data_ptr(),
-        best_len.data_ptr(), bsz, n, depth, ro_cap, FENCE, PAD_FRONT,
-        LZ_MATCH_MIN_LEN, _FAR_GATE, FAR_RO_1, FAR_RO_2, N_DW,
-        _lib.stream_ptr(msk.device),
-    )
-    _lib.check(rc, "otz_match_depth")
+    out = launch("match_depth", msk, msp, rank_s, dw_s, end, depth, ro_cap)
     global launches
     launches += 1
-    return best_q, best_ro, best_len
+    return out

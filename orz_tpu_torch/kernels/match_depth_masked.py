@@ -1,0 +1,39 @@
+"""K2: the masked candidate depth loop (``csrc/match_depth.cu``).
+
+Replaces ``orz_tpu/ops/match_pallas.py`` ``match_depth_pallas`` with a
+``mask_s`` (``_make_kernel(masked=True)``), the OTZ2 iteration and conform
+analyses' search: candidates only at mask-1 slots (the previous parse's
+item starts), ``rank_s`` holding masked prefix counts, offsets gated at
+``ro_cap``; past ``near_depth`` (when > 0) only mask-1 queries look; with
+``ro_cap_near < ro_cap`` the far tier scores its LCP alone.  Inputs as K1's
+(``kernels/match_depth.py``) plus ``mask_s`` (B, n) bool in sorted order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from orz_tpu_torch.kernels.match_depth import (
+    check_inputs,
+    launch,
+    match_depth_plain,
+)
+
+launches = 0  # kernel launches (not plain-version calls) since last reset
+
+
+def match_depth_masked(msk, msp, rank_s, dw_s, end, mask_s, depth: int,
+                       ro_cap: int, near_depth: int = 0,
+                       ro_cap_near: int | None = None):
+    """K2 on CUDA tensors; the plain version on CPU tensors."""
+    check_inputs("match_depth_masked", msk, msp, rank_s, dw_s, end, depth)
+    if mask_s.dtype != torch.bool or mask_s.shape != msk.shape:
+        raise ValueError("match_depth_masked: mask_s must be bool (B, n)")
+    if msk.device.type == "cpu":
+        return match_depth_plain(msk, msp, rank_s, dw_s, end, depth, ro_cap,
+                                 mask_s, near_depth, ro_cap_near)
+    out = launch("match_depth_masked", msk, msp, rank_s, dw_s, end, depth,
+                 ro_cap, mask_s, near_depth, ro_cap_near)
+    global launches
+    launches += 1
+    return out

@@ -1,11 +1,13 @@
-"""Torch bodies of the batched OTZ1 encoder (FRONT, MID, BACK).
+"""Torch bodies of the batched encoder: FRONT, the analyses of QUALITY,
+the OTZ1 MID and BACK.
 
 Each function mirrors the function of the same name in
 ``orz_tpu/ops/batched.py`` on ``(B, ...)`` tensors and returns equal
-values; ``tests/test_torch_*.py`` hold them to it.  The three Pallas
-kernels of this path are hand-written CUDA kernels here
-(``orz_tpu_torch/kernels``): K1 match depth in ``analyze_b``, K3 the fence
-walk in ``front_body_b``, K5 symrank in ``back_body_b``.
+values; ``tests/test_torch_*.py`` hold them to it.  The Pallas kernels of
+these stages are hand-written CUDA kernels here (``orz_tpu_torch/kernels``):
+K1 and K2 (masked) match depth in ``analyze_b``, K3 the fence walk in
+``front_body_b``, K5 symrank in ``back_body_b``.  The OTZ2 steps and the
+item-space MID2 bodies are in ``ops/otz2.py``.
 
 Conventions that keep the results equal to the JAX ones:
 
@@ -17,7 +19,12 @@ Conventions that keep the results equal to the JAX ones:
 - uint32 arithmetic (the match-key hash, the packed payload words) runs in
   int64 masked to 32 bits; dwords travel as int32 bit patterns.
 - Scatters with JAX's drop semantics send out-of-range indices to one
-  extra column that is dropped afterwards.
+  extra column that is dropped afterwards.  Where the scattered rows are a
+  permutation (the match queries of an item merge), each row is written
+  once and the rest go to distinct dump columns: no atomics.
+- ``lax.associative_scan`` has no torch counterpart: segmented scans are
+  a ``cummax`` of slot indices clipped at the group start, or a
+  ``cumsum`` minus its value at the group start.
 """
 
 from __future__ import annotations
@@ -26,20 +33,6 @@ from typing import NamedTuple
 
 import torch
 
-from orz_tpu.device.spec import (
-    FENCE,
-    LAZY_LEN_CAP,
-    LZ_LENID_SIZE,
-    LZ_MATCH_MAX_LEN,
-    LZ_MATCH_MIN_LEN,
-    NEG_EML_BASE,
-    NEG_EML_DEPTH,
-    PAD_FRONT,
-    REP0_BASE,
-    ROBITS_CHEAP,
-    ROID_GROUP_BITS,
-    WORD_SYMBOL,
-)
 from orz_tpu_torch.device.host import (
     C,
     C_MID,
@@ -57,8 +50,25 @@ from orz_tpu_torch.kernels.match_depth import (
     min_match_len_for_ro,
     shift_dn,
 )
+from orz_tpu_torch.kernels.match_depth_masked import match_depth_masked
 from orz_tpu_torch.kernels.symrank import symrank
 from orz_tpu_torch.ops.huffman import canonical_codes_b, pm_code_lens_b
+from orz_tpu_torch.spec import (
+    FENCE,
+    LAZY_LEN_CAP,
+    LZ_LENID_SIZE,
+    LZ_MATCH_MAX_LEN,
+    LZ_MATCH_MIN_LEN,
+    NEG_EML_BASE,
+    NEG_EML_DEPTH,
+    OTZ2_NEAR,
+    OTZ2_RO_CAP,
+    PAD_FRONT,
+    REP0_BASE,
+    ROBITS_CHEAP,
+    ROID_GROUP_BITS,
+    WORD_SYMBOL,
+)
 
 INT_MAX = 0x7FFFFFFF
 
@@ -108,6 +118,23 @@ class Packed(NamedTuple):
     n_items: torch.Tensor
 
 
+class MaskedPlan(NamedTuple):
+    """The sorted layouts every OTZ2 iteration reuses (``MaskedPlan`` of
+    ``orz_tpu/ops/analyze.py``): each sort key depends on the bytes only.
+    JAX moves an iteration's mask payloads into them by sorting on the
+    inverse permutations (``dest_*``); here that is a gather by the sort
+    order itself, so the inverses are not kept."""
+
+    sp_h2: torch.Tensor  # int64 x of the (h2, x) sort over [PAD_FRONT-2, end)
+    sval_h2: torch.Tensor  # int32 (b[x+1], b[x+2]) at each sorted slot
+    first_h2: torch.Tensor  # bool group starts
+    sp_ctx: torch.Tensor  # int64 x of the (cctx, x) sort over valid rows
+    first_ctx: torch.Tensor
+    msk: torch.Tensor  # int32 (mkey, x) candidate sort: keys
+    msp: torch.Tensor  # int32 positions
+    dw_s: torch.Tensor  # (B, N_DW, n) int32 payload dwords
+
+
 # --- flat-index helpers ------------------------------------------------------
 
 
@@ -131,10 +158,6 @@ def _bscatter(dst, idx, val, reduce: str):
     out.scatter_reduce_(1, idx, val.to(dst.dtype), reduce=reduce,
                         include_self=True)
     return out[:, :n]
-
-
-def bscatter_max(dst, idx, val):
-    return _bscatter(dst, idx, val, "amax")
 
 
 def bscatter_add(dst, idx, val):
@@ -222,6 +245,89 @@ def word_predictions_b(ba: ByteArrays, bufs: torch.Tensor,
     return torch.where((x >= PAD_FRONT) & (x < end), pred, 0)
 
 
+def _group_start(first: torch.Tensor) -> torch.Tensor:
+    """Slot index of each slot's group start (int64)."""
+    s = torch.arange(first.shape[1], device=first.device).expand_as(first)
+    return torch.cummax(torch.where(first, s, 0), dim=1).values
+
+
+def _last_marked(first: torch.Tensor, marked: torch.Tensor) -> torch.Tensor:
+    """Slot index of the newest marked slot at or before each slot within
+    its group, -1 when there is none (int64)."""
+    s = torch.arange(first.shape[1], device=first.device).expand_as(first)
+    last = torch.cummax(torch.where(marked, s, -1), dim=1).values
+    return torch.where(last >= _group_start(first), last, -1)
+
+
+def masked_plan_b(bufs: torch.Tensor, seg_lens: torch.Tensor) -> MaskedPlan:
+    """The plan's three sorts, once per batch (``masked_plan_b``)."""
+    bsz, n = bufs.shape
+    end = (PAD_FRONT + seg_lens).view(-1, 1)
+    x = _positions(bsz, n, bufs.device)
+    valid = (x >= PAD_FRONT) & (x < end)
+    ba = byte_arrays_b(bufs)
+
+    rows_h2 = (x >= PAD_FRONT - 2) & (x < end)
+    b32 = bufs.int()
+    val_at = _rolll(b32, 1) | (_rolll(b32, 2) << 8)
+    sk, sp_h2 = torch.sort(torch.where(rows_h2, ba.h2, INT_MAX), dim=1,
+                           stable=True)
+    skc, sp_ctx = torch.sort(torch.where(valid, ba.cctx, INT_MAX), dim=1,
+                             stable=True)
+    msk, order, dw_s = _candidate_sort_b(ba, valid)
+    return MaskedPlan(sp_h2, torch.gather(val_at, 1, sp_h2), _first_marks(sk),
+                      sp_ctx, _first_marks(skc), msk, order.int(), dw_s)
+
+
+def _words1_scan_b(first, sp, sval, supd):
+    """Per sorted slot, the value of the newest update at a position <= its
+    own - 2 among the newest three updates of its group (inclusive), else
+    0 (``_words1_scan_b``'s segmented newest-3 trail, built from the newest
+    update and each update's predecessor)."""
+    u1 = _last_marked(first, supd)
+    prev = torch.cat([torch.full_like(u1[:, :1], -1), u1[:, :-1]], dim=1)
+    prev = torch.where(prev >= _group_start(first), prev, -1)
+    u2 = torch.where(u1 >= 0, torch.gather(prev, 1, u1.clamp(min=0)), -1)
+    u3 = torch.where(u2 >= 0, torch.gather(prev, 1, u2.clamp(min=0)), -1)
+
+    def at(u):  # (position, value) of update slot u; position -1 for none
+        uc = u.clamp(min=0)
+        return (torch.where(u >= 0, torch.gather(sp, 1, uc), -1),
+                torch.gather(sval, 1, uc))
+
+    (p1, v1), (p2, v2), (p3, v3) = at(u1), at(u2), at(u3)
+    lim = sp - 2
+    return torch.where(
+        p1 <= lim, torch.where(p1 >= 0, v1, 0),
+        torch.where(p2 <= lim, torch.where(p2 >= 0, v2, 0),
+                    torch.where((p3 <= lim) & (p3 >= 0), v3, 0)))
+
+
+def word_predictions_masked_planned_b(plan: MaskedPlan, end: torch.Tensor,
+                                      mask: torch.Tensor) -> torch.Tensor:
+    """Word predictions whose table takes only the bytes that end an item
+    of ``mask``'s parse.  end: (B, 1)."""
+    bsz, n = mask.shape
+    x = _positions(bsz, n, mask.device)
+    upd = (x >= PAD_FRONT - 2) & (x < end) & _rolll(mask, 3)
+    supd = torch.gather(upd, 1, plan.sp_h2)
+    pred_s = _words1_scan_b(plan.first_h2, plan.sp_h2, plan.sval_h2, supd)
+    (pred_at_x,) = _sort_back_b(plan.sp_h2, (pred_s,))
+    pred = _rollr(pred_at_x, 1)
+    return torch.where((x >= PAD_FRONT) & (x < end), pred, 0)
+
+
+def masked_context_counts_planned_b(plan: MaskedPlan, valid: torch.Tensor,
+                                    mask: torch.Tensor) -> torch.Tensor:
+    """Per position, the count of earlier ``mask`` positions in its byte
+    context (a segmented exclusive sum over the (cctx, x) sort)."""
+    sm = torch.gather((mask & valid).long(), 1, plan.sp_ctx)
+    excl = torch.cumsum(sm, dim=1) - sm
+    excl = excl - torch.gather(excl, 1, _group_start(plan.first_ctx))
+    (scnt,) = _sort_back_b(plan.sp_ctx, (excl.int(),))
+    return torch.where(valid, scnt, 0)
+
+
 def context_ranks_b(ba: ByteArrays, valid: torch.Tensor) -> torch.Tensor:
     """Batched in-context insertion ranks."""
     bsz, n = valid.shape
@@ -274,38 +380,72 @@ def _extend_b(dw: torch.Tensor, best_q, cur, cap_back, alive):
     return out.reshape(bsz, n)
 
 
-def candidate_arrays_b(ba: ByteArrays, rank: torch.Tensor,
-                       valid: torch.Tensor):
-    """K1's inputs (msk, msp, rank_s, dw_s): every position sorted by
-    (match key, position), carrying its rank and the N_DW payload dwords
-    that start at it ((B, N_DW, n); JAX rolls and sorts 16 arrays)."""
+def _candidate_sort_b(ba: ByteArrays, valid: torch.Tensor):
+    """(msk, order, dw_s): every position sorted by (match key, position),
+    with the N_DW payload dwords that start at it ((B, N_DW, n); JAX rolls
+    and sorts 16 arrays)."""
     n = valid.shape[1]
     msk, order = torch.sort(torch.where(valid, ba.mkey, INT_MAX), dim=1,
                             stable=True)
-    rank_s = torch.gather(rank, 1, order)
     dw_s = torch.stack([torch.gather(ba.dw, 1, (order + 4 * t) % n)
                         for t in range(N_DW)], dim=1)
-    return msk, order.int(), rank_s, dw_s
+    return msk, order, dw_s
 
 
-def analyze_b(bufs: torch.Tensor, seg_lens: torch.Tensor,
-              depth: int) -> Analysis:
-    """Batched unmasked analysis (``analyze_b`` with ``mask=None``)."""
+def candidate_arrays_b(ba: ByteArrays, rank: torch.Tensor,
+                       valid: torch.Tensor):
+    """K1's inputs (msk, msp, rank_s, dw_s): the candidate sort carrying
+    each position's rank."""
+    msk, order, dw_s = _candidate_sort_b(ba, valid)
+    return msk, order.int(), torch.gather(rank, 1, order), dw_s
+
+
+def analyze_b(bufs: torch.Tensor, seg_lens: torch.Tensor, depth: int,
+              mask: torch.Tensor | None = None, words_mode: bool = False,
+              plan: MaskedPlan | None = None,
+              ro_cap: int | None = None) -> Analysis:
+    """Batched analysis.  ``mask`` None: FRONT's unmasked search (K1).
+    With a (B, n) bool ``mask`` and its batch's ``plan``: the OTZ2 search
+    (K2) whose candidates are ``mask``'s item starts and whose ranks count
+    them, at ``ro_cap`` (default OTZ2_RO_CAP; above it the search is
+    two-tier with OTZ2_RO_CAP as the near cap) and with only mask queries
+    past OTZ2_NEAR shifts; ``words_mode`` takes the word predictions from
+    ``mask``'s item ends too."""
+    if (mask is None) != (plan is None) or (words_mode and mask is None):
+        raise ValueError("analyze_b: mask and plan come together, and "
+                         "words_mode needs them")
     bsz, n = bufs.shape
     end = (PAD_FRONT + seg_lens).view(-1, 1)
     p = _positions(bsz, n, bufs.device)
     valid = (p >= PAD_FRONT) & (p < end)
 
     ba = byte_arrays_b(bufs)
-    pred = word_predictions_b(ba, bufs, end)
+    if words_mode:
+        pred = word_predictions_masked_planned_b(plan, end, mask)
+    else:
+        pred = word_predictions_b(ba, bufs, end)
     b32 = bufs.int()
     wordmatch = (b32 | (_rolll(b32, 1) << 8)) == pred
-    rank = context_ranks_b(ba, valid)
 
-    msk, msp, rank_s, dw_s = candidate_arrays_b(ba, rank, valid)
-    best_q_s, best_ro_s, best_len_s = match_depth(
-        msk, msp, rank_s, dw_s, end.view(-1).int(), depth)
-    del dw_s
+    if mask is None:
+        rank = context_ranks_b(ba, valid)
+        msk, msp, rank_s, dw_s = candidate_arrays_b(ba, rank, valid)
+        best_q_s, best_ro_s, best_len_s = match_depth(
+            msk, msp, rank_s, dw_s, end.view(-1).int(), depth)
+        del dw_s
+    else:
+        rank = masked_context_counts_planned_b(plan, valid, mask)
+        order = plan.msp.long()
+        msk, msp = plan.msk, plan.msp
+        ro_cap_near = None
+        if ro_cap is None:
+            ro_cap = OTZ2_RO_CAP
+        elif ro_cap > OTZ2_RO_CAP:
+            ro_cap_near = OTZ2_RO_CAP
+        best_q_s, best_ro_s, best_len_s = match_depth_masked(
+            msk, msp, torch.gather(rank, 1, order), plan.dw_s,
+            end.view(-1).int(), torch.gather(mask, 1, order), depth, ro_cap,
+            OTZ2_NEAR if depth > OTZ2_NEAR else 0, ro_cap_near)
     best_q, best_ro, lcp_best = _sort_back_b(
         msp, (best_q_s, best_ro_s, best_len_s))
     cap_back = torch.minimum(FENCE - ((p - PAD_FRONT) & (FENCE - 1)), end - p)
@@ -392,6 +532,108 @@ def _seg_cummax(first: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.cummax(seg * 256 + v.long(), dim=1).values - seg * 256
 
 
+def scatter_queries(is_q: torch.Tensor, slot: torch.Tensor,
+                    val: torch.Tensor, mc: int) -> torch.Tensor:
+    """(B, mc): max(val, 0) at ``slot`` of each query row, 0 elsewhere.
+    JAX's ``bscatter_max`` into zeros with the other rows dropped; the
+    query rows' slots are a permutation of 0..mc-1, so each is written
+    once, and the other rows go to distinct dump columns (no atomics, no
+    contended dropped column)."""
+    bsz, r = slot.shape
+    dump = mc + torch.arange(r, device=slot.device).expand(bsz, r)
+    out = torch.zeros((bsz, mc + r), dtype=val.dtype, device=val.device)
+    out.scatter_(1, torch.where(is_q, slot.long(), dump),
+                 torch.clamp(val, min=0))
+    return out[:, :mc]
+
+
+def merge_by_target(item_key, q_key):
+    """Items (role 0, keyed by start) and their match queries (role 1,
+    keyed by target) merged by (key, role), stable: (o, o_key, o_role,
+    o_pay), o the merge order over the concatenation [items, queries] and
+    o_pay the item index of each merged row."""
+    mc = item_key.shape[1]
+    skey = torch.cat([item_key, q_key], dim=1)
+    role = torch.arange(2 * mc, device=skey.device) >= mc
+    _, o = torch.sort(skey.long() * 2 + role, dim=1, stable=True)
+    return o, torch.gather(skey, 1, o), (o >= mc).int(), o % mc
+
+
+def cand_of_queries(o_role, o_pay, mc: int) -> torch.Tensor:
+    """Per item, the newest item at or before its query's target in the
+    merge (0 when none)."""
+    last_item = torch.cummax(torch.where(o_role == 0, o_pay, -1), dim=1).values
+    return scatter_queries(o_role == 1, o_pay, last_item, mc)
+
+
+def rep0_b(start, kind, q, n_items):
+    """Matches that repeat the previous match's distance (``_rep0_b``)."""
+    bsz, mc = start.shape
+    idx = _positions(bsz, mc, start.device)
+    is_m = (kind == 2) & (idx < n_items.view(-1, 1))
+    dist = torch.where(is_m, start - q, 0)
+    last_match = torch.cummax(torch.where(is_m, idx, -1), dim=1).values
+    prev_match = torch.cat(
+        [torch.full_like(last_match[:, :1], -1), last_match[:, :-1]], dim=1)
+    prev_dist = torch.where(prev_match >= 0, bgather(dist, prev_match), 0)
+    return is_m & (dist == prev_dist) & (prev_dist > 0)
+
+
+def lengths_and_symbols(start, valid, kind, length, q, rep0, roid, lit, end):
+    """(eml, symbol, pred_ok): the length prediction and the symbols,
+    shared by ``build_items_b`` and ``emit_items2_b``.  Items (role 0) and
+    match queries (role 1) are merged by target position, items first; a
+    query's expected length is the item at its target, its floor the
+    longest earlier query of the same target."""
+    bsz, mc = start.shape
+    is_match = kind == 2
+    startc = torch.where(valid, start, 0)
+    o, o_key, o_role, o_pay = merge_by_target(
+        torch.where(valid, start, 0x7FFFFFFE),
+        torch.where(is_match & valid, q, INT_MAX))
+    q_len = torch.where(is_match, length, 0)
+    o_len = torch.gather(torch.cat([torch.zeros_like(q_len), q_len], dim=1),
+                         1, o)
+    cand = cand_of_queries(o_role, o_pay, mc)
+    hit = (bgather(startc, cand) == q) & is_match
+    expected_q = torch.where(hit & (bgather(kind, cand) == 2),
+                             bgather(length, cand), 0)
+
+    first = torch.cat([
+        torch.ones((bsz, 1), dtype=torch.bool, device=start.device),
+        (o_key[:, 1:] != o_key[:, :-1]) | (o_role[:, 1:] != o_role[:, :-1]),
+    ], dim=1)
+    incl = _seg_cummax(first, o_len)
+    excl = torch.where(first, 0, torch.cat(
+        [torch.zeros_like(incl[:, :1]), incl[:, :-1]], dim=1))
+    prev_max_l = scatter_queries(o_role == 1, o_pay, excl, mc)
+    len_min_q = torch.where(prev_max_l > 0,
+                            torch.clamp(prev_max_l + 1, max=127), 0)
+
+    fence_room = torch.minimum(
+        FENCE - ((startc - PAD_FRONT) & (FENCE - 1)), end - startc)
+    lm = torch.minimum(torch.clamp(len_min_q, min=LZ_MATCH_MIN_LEN),
+                       fence_room)
+    ex = torch.clamp(expected_q, min=LZ_MATCH_MIN_LEN)
+    e_pred = torch.where(
+        length < lm,
+        NEG_EML_BASE + (lm - 1 - length),
+        torch.where(length > ex, length - lm,
+                    torch.where(length < ex, length - lm + 1, 0)),
+    )
+    pred_ok = ~torch.any(is_match & (lm - length > NEG_EML_DEPTH), dim=1)
+    eml_raw = torch.where(is_match, length - LZ_MATCH_MIN_LEN, 0)
+    eml = torch.where(is_match & pred_ok.view(-1, 1), e_pred, eml_raw)
+    lenid = torch.clamp(eml, max=LZ_LENID_SIZE - 1)
+    symbol = torch.where(
+        is_match,
+        torch.where(rep0, REP0_BASE + lenid,
+                    256 + roid * LZ_LENID_SIZE + lenid),
+        torch.where(kind == 1, WORD_SYMBOL, lit),
+    )
+    return eml.int(), symbol.int(), pred_ok
+
+
 def build_items_b(starts, n_items, pk1, bestq, bestro, bufs, seg_lens):
     """Batched item fields from the compacted starts (OTZ1 mid)."""
     bsz, mc = starts.shape
@@ -414,79 +656,18 @@ def build_items_b(starts, n_items, pk1, bestq, bestro, bufs, seg_lens):
 
     is_match = kind == 2
     q_item = torch.where(is_match, bgather(bestq, start), 0)
-    dist = torch.where(is_match, start - q_item, 0)
-    last_match = torch.cummax(torch.where(is_match, idx, -1), dim=1).values
-    prev_match = torch.cat(
-        [torch.full((bsz, 1), -1, dtype=torch.int32, device=dev),
-         last_match[:, :-1]], dim=1)
-    prev_dist = torch.where(prev_match >= 0, bgather(dist, prev_match), 0)
-    rep0 = is_match & (dist == prev_dist) & (prev_dist > 0)
-
+    rep0 = rep0_b(start, kind, q_item, n_items)
     ro = torch.where(is_match, bgather(bestro, start), 0)
     roid, robitlen_all, robits_all = roid_of_ro(ro)
     robitlen = torch.where(is_match & ~rep0, robitlen_all, 0)
     robits = torch.where(is_match & ~rep0, robits_all, 0)
-
-    # length prediction: merge items (role 0) and match queries (role 1)
-    # by target position, items first at equal keys
-    q_key = torch.where(is_match & valid, q_item, INT_MAX)
-    skey = torch.cat([torch.where(valid, starts, 0x7FFFFFFE), q_key], dim=1)
-    srole = torch.cat([torch.zeros_like(idx), torch.ones_like(idx)], dim=1)
-    spay = torch.cat([idx, idx], dim=1)
-    slen = torch.cat([torch.zeros_like(idx),
-                      torch.where(is_match, length, 0)], dim=1)
-    _, o = torch.sort(skey.long() * 2 + srole, dim=1, stable=True)
-    o_key = torch.gather(skey, 1, o)
-    o_role = torch.gather(srole, 1, o)
-    o_pay = torch.gather(spay, 1, o)
-    o_len = torch.gather(slen, 1, o)
-
-    last_item = torch.cummax(torch.where(o_role == 0, o_pay, -1), dim=1).values
-    qslot = torch.where(o_role == 1, o_pay, mc)
-    zeros1 = torch.zeros((bsz, mc + 1), dtype=torch.int32, device=dev)
-    cand = bscatter_max(zeros1, qslot, torch.clamp(last_item, min=0))[:, :mc]
-    hit = (bgather(start, cand) == q_item) & is_match
-    expected_q = torch.where(hit & (bgather(kind, cand) == 2),
-                             bgather(length, cand), 0)
-
-    first = torch.cat([
-        torch.ones((bsz, 1), dtype=torch.bool, device=dev),
-        (o_key[:, 1:] != o_key[:, :-1]) | (o_role[:, 1:] != o_role[:, :-1]),
-    ], dim=1)
-    incl = _seg_cummax(first, o_len)
-    excl = torch.where(first, 0, torch.cat(
-        [torch.zeros_like(incl[:, :1]), incl[:, :-1]], dim=1))
-    prev_max_l = bscatter_max(zeros1, qslot,
-                              torch.where(o_role == 1, excl, 0))[:, :mc]
-    len_min_q = torch.where(prev_max_l > 0,
-                            torch.clamp(prev_max_l + 1, max=127), 0)
-
-    fence_room = torch.minimum(
-        FENCE - ((start - PAD_FRONT) & (FENCE - 1)), end - start)
-    lm = torch.minimum(torch.clamp(len_min_q, min=LZ_MATCH_MIN_LEN),
-                       fence_room)
-    ex = torch.clamp(expected_q, min=LZ_MATCH_MIN_LEN)
-    e_pred = torch.where(
-        length < lm,
-        NEG_EML_BASE + (lm - 1 - length),
-        torch.where(length > ex, length - lm,
-                    torch.where(length < ex, length - lm + 1, 0)),
-    )
-    pred_ok = ~torch.any(is_match & (lm - length > NEG_EML_DEPTH), dim=1)
-    eml_raw = torch.where(is_match, length - LZ_MATCH_MIN_LEN, 0)
-    eml = torch.where(is_match & pred_ok.view(-1, 1), e_pred, eml_raw)
-    lenid = torch.clamp(eml, max=LZ_LENID_SIZE - 1)
-    symbol = torch.where(
-        is_match,
-        torch.where(rep0, REP0_BASE + lenid,
-                    256 + roid * LZ_LENID_SIZE + lenid),
-        torch.where(kind == 1, WORD_SYMBOL, lob),
-    )
+    eml, symbol, pred_ok = lengths_and_symbols(
+        starts, valid, kind, length, q_item, rep0, roid, lob, end)
     sr_ctx = cctx | (after_literal << 8)
     return Items(
         torch.where(valid, starts, end), n_items, kind.int(), length.int(),
-        symbol.int(), sr_ctx.int(), pred8.int(), after_literal,
-        robitlen.int(), robits.int(), eml.int(), pred_ok,
+        symbol, sr_ctx.int(), pred8.int(), after_literal,
+        robitlen.int(), robits.int(), eml, pred_ok,
     )
 
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from orz_tpu.constants import HUFFMAN_MAX_CODE_LEN
+from orz_tpu_torch.spec import HUFFMAN_MAX_CODE_LEN
 
 INF = 1 << 28  # weights are < 2^21; INF+INF stays < 2^31
 

@@ -13,10 +13,16 @@ import numpy as np
 import pytest
 import torch
 
-from orz_tpu.device.spec import PAD_FRONT
 from orz_tpu_torch.device.host import _bucket, pad_batch
-from orz_tpu_torch.kernels import fence_walk, match_depth, symrank
+from orz_tpu_torch.kernels import (
+    fence_walk,
+    match_depth,
+    match_depth_masked,
+    symrank,
+    walk_mask,
+)
 from orz_tpu_torch.ops import batched as ob
+from orz_tpu_torch.spec import OTZ2_RO_CAP, PAD_FRONT, RING
 
 CAP = 1 << 18
 
@@ -79,6 +85,43 @@ def test_match_depth_kernel_matches_plain(batch, depth):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["iteration", "conform"])
+def test_match_depth_masked_kernel_matches_plain(batch, variant):
+    """K2 at depth 384 with near gating at 96, on the FRONT parse's mask:
+    the iteration cap, and the conform's two-tier cap."""
+    _, bufs, lens = batch
+    n = bufs.shape[1]
+    p = torch.arange(n, device=bufs.device)
+    valid = (p >= PAD_FRONT) & (p < (PAD_FRONT + lens).view(-1, 1))
+    mask = ob.front_body_b(bufs, lens, 32)[6]
+    plan = ob.masked_plan_b(bufs, lens)
+    rank = ob.masked_context_counts_planned_b(plan, valid, mask)
+    order = plan.msp.long()
+    args = (plan.msk, plan.msp, torch.gather(rank, 1, order), plan.dw_s,
+            (PAD_FRONT + lens).int(), torch.gather(mask, 1, order), 384)
+    caps = (OTZ2_RO_CAP, 96, None) if variant == "iteration" \
+        else (RING, 96, OTZ2_RO_CAP)
+    before = match_depth_masked.launches
+    got = match_depth_masked.match_depth_masked(*args, *caps)
+    torch.cuda.synchronize()
+    assert match_depth_masked.launches == before + 1
+    _equal(got, match_depth.match_depth_plain(*args[:5], 384, caps[0],
+                                              args[5], *caps[1:]))
+    assert int((got[0] >= 0).sum()) > 10000
+
+
+@pytest.mark.cuda
+def test_walk_mask_kernel_matches_plain(batch):
+    _, bufs, lens = batch
+    nxt = ob.decisions_b(ob.analyze_b(bufs, lens, 8), lens, bufs.shape[1]).nxt
+    before = walk_mask.launches
+    got = walk_mask.walk_mask(nxt, lens)
+    torch.cuda.synchronize()
+    assert walk_mask.launches == before + 1
+    _equal(got, walk_mask.walk_mask_plain(nxt, lens))
+
+
+@pytest.mark.cuda
 def test_fence_walk_kernel_matches_plain(batch):
     _, bufs, lens = batch
     nxt = ob.decisions_b(ob.analyze_b(bufs, lens, 8), lens, bufs.shape[1]).nxt
@@ -102,14 +145,41 @@ def test_symrank_kernel_matches_plain(batch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("level", [1, 2])
-def test_cuda_payloads_equal_cpu_payloads(batch, level):
-    from orz_tpu.native.otz import decode_segment_native
+@pytest.mark.parametrize("level,rings_mode", [(1, 0), (2, 0), (2, None)])
+def test_cuda_payloads_equal_cpu_payloads(batch, level, rings_mode):
+    """l1, l2 with OTZ2 off, and the l2 default (OTZ2, its default
+    schedule) on 2 x 64 KiB."""
     from orz_tpu_torch.device.batch import encode_segments_batch
+    from orz_tpu_torch.device.container import decode_segment
 
     segs = [s[: 1 << 16] for s in batch[0]]
-    got = encode_segments_batch(segs, level, rings_mode=0, device="cuda")
-    want = encode_segments_batch(segs, level, rings_mode=0, device="cpu")
+    got = encode_segments_batch(segs, level, rings_mode=rings_mode,
+                                device="cuda")
+    want = encode_segments_batch(segs, level, rings_mode=rings_mode,
+                                 device="cpu")
     assert got == want
     for seg, payload in zip(segs, got):
-        assert decode_segment_native(payload) == seg
+        assert decode_segment(payload) == seg
+
+
+@pytest.mark.cuda
+def test_cuda_otz1_fallback_equals_cpu(batch, monkeypatch):
+    """A segment whose repair failed takes the OTZ1 path on the card as on
+    the CPU, and its payload is the plain rings_mode=0 encode."""
+    from orz_tpu_torch.device import batch as tb
+
+    segs = [s[: 1 << 14] for s in batch[0]]
+    mid2 = tb.mid2_body
+
+    def fail_first(*args, **kw):
+        items, ok, *rest = mid2(*args, **kw)
+        ok = ok.clone()
+        ok[0] = False
+        return (items, ok, *rest)
+
+    monkeypatch.setattr(tb, "mid2_body", fail_first)
+    monkeypatch.setenv("OTZ2_SCHEDULE", "96x1,384x2")
+    got = tb.encode_segments_batch(segs, 2, device="cuda")
+    assert got == tb.encode_segments_batch(segs, 2, device="cpu")
+    assert got[0] == tb.encode_segments_batch(segs[:1], 2, rings_mode=0,
+                                              device="cuda")[0]

@@ -2,10 +2,11 @@
 
 On the CPU every kernel wrapper runs its plain torch version; these tests
 hold those plain versions to the JAX package at B=2, cap=1<<15, on arrays
-from a real FRONT: K1 against ``match_depth_pallas`` (interpret mode), K3
-against ``walk_items_b`` (what the JAX package runs off the TPU), K5
-against ``symrank_pallas_b`` (interpret mode) and the sequential oracle.
-All outputs are integers: tolerance 0.
+from a real FRONT: K1 and K2 (masked, on the FRONT parse's mask and the
+port's own plan) against ``match_depth_pallas`` (interpret mode), K3 and
+K4 against ``walk_items_b`` / ``walk_mask_pallas`` (what the JAX package
+runs off the TPU), K5 against ``symrank_pallas_b`` (interpret mode) and the
+sequential oracle.  All outputs are integers: tolerance 0.
 """
 
 from types import SimpleNamespace
@@ -16,10 +17,16 @@ import numpy as np
 import pytest
 import torch
 
-from orz_tpu.device.spec import PAD_FRONT
 from orz_tpu_torch.device.host import N_DW, _bucket, pad_batch
-from orz_tpu_torch.kernels import fence_walk, match_depth, symrank
+from orz_tpu_torch.kernels import (
+    fence_walk,
+    match_depth,
+    match_depth_masked,
+    symrank,
+    walk_mask,
+)
 from orz_tpu_torch.ops import batched as ob
+from orz_tpu_torch.spec import OTZ2_RO_CAP, PAD_FRONT, RING
 from tests.conftest import make_binary_like, make_text_like
 
 torch.set_num_threads(2)
@@ -73,6 +80,82 @@ def test_match_depth_plain_matches_pallas(candidates, depth):
         )
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g[b].numpy(), np.asarray(w))
+
+
+def _masked_candidates(bufs, lens, mask):
+    """K2's inputs as a QUALITY step builds them: the port's plan, and the
+    masked ranks and the mask in the plan's candidate order."""
+    n = bufs.shape[1]
+    p = torch.arange(n)
+    valid = (p >= PAD_FRONT) & (p < (PAD_FRONT + lens).view(-1, 1))
+    if mask is None:  # a literal-only parse: every position starts an item
+        mask = valid
+    plan = ob.masked_plan_b(bufs, lens)
+    rank = ob.masked_context_counts_planned_b(plan, valid, mask)
+    order = plan.msp.long()
+    return (plan.msk, plan.msp, torch.gather(rank, 1, order), plan.dw_s,
+            (PAD_FRONT + lens).int(), torch.gather(mask, 1, order))
+
+
+@pytest.fixture(scope="module")
+def masked_candidates(batch):
+    """Iteration: the binary-like row (long same-key runs) with the FRONT
+    parse's mask.  Conform: a row whose 3000-byte block (random bytes,
+    each after an 'a') comes back after 5000 more 'a's, with every
+    position a candidate, so the block's offsets (counted among the
+    positions of the same context) pass the near cap."""
+    bufs, lens = batch
+    mask = ob.front_body_b(bufs[1:], lens[1:], 8)[6]
+    block = np.full(3000, ord("a"), np.uint8)
+    block[1::2] = np.random.default_rng(7).integers(0, 256, 1500)
+    block = block.tobytes()
+    far = (torch.from_numpy(a)
+           for a in pad_batch([block + b"a" * 5000 + block], CAP))
+    return {"iteration": _masked_candidates(bufs[1:], lens[1:], mask),
+            "conform": _masked_candidates(*far, None)}
+
+
+@pytest.mark.parametrize("variant", ["iteration", "conform"])
+def test_match_depth_masked_plain_matches_pallas(masked_candidates, variant):
+    """Depth 160 (past one 128-shift band) with near gating at 96, one
+    row each: the iteration cap, and the conform's two-tier cap with
+    matches in both tiers."""
+    from orz_tpu.ops.match_pallas import match_depth_pallas
+
+    args = masked_candidates[variant]
+    msk, msp, rank_s, dw_s, end, mask_s = args
+    ro_cap, near_cap = {"iteration": (OTZ2_RO_CAP, None),
+                        "conform": (RING, OTZ2_RO_CAP)}[variant]
+    got = match_depth_masked.match_depth_masked(*args, 160, ro_cap, 96,
+                                                near_cap)
+    assert int((got[0] >= 0).sum()) > 500
+    if near_cap is not None:  # both tiers took matches
+        assert int((got[1] >= near_cap).sum()) > 100
+        assert int(((got[0] >= 0) & (got[1] < near_cap)).sum()) > 100
+    want = match_depth_pallas(
+        jnp.asarray(msk[0].numpy()), jnp.asarray(msp[0].numpy()),
+        jnp.asarray(rank_s[0].numpy()),
+        tuple(jnp.asarray(dw_s[0, t].numpy()) for t in range(N_DW)),
+        jnp.int32(int(end[0])), depth=160,
+        mask_s=jnp.asarray(mask_s[0].numpy()), ro_cap=ro_cap,
+        near_depth=96, ro_cap_near=near_cap,
+    )
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g[0].numpy(), np.asarray(w))
+
+
+def test_walk_mask_plain_matches_walk_mask_pallas(batch):
+    from orz_tpu.ops.walk_pallas import walk_mask_pallas
+
+    bufs, lens = batch
+    n = bufs.shape[1]
+    nxt = ob.decisions_b(ob.analyze_b(bufs, lens, 8), lens, n).nxt
+    mask, n_items = walk_mask.walk_mask(nxt, lens)
+    j_mask, j_ni = jax.jit(walk_mask_pallas, static_argnums=2)(
+        jnp.asarray(nxt.numpy()), jnp.asarray(lens.numpy()), n)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(j_mask))
+    np.testing.assert_array_equal(n_items.numpy(), np.asarray(j_ni))
+    assert n_items.dtype == torch.int32 and int(n_items.min()) > 1000
 
 
 def test_fence_walk_plain_matches_walk_items_b(batch):

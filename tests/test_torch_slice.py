@@ -1,4 +1,5 @@
-"""The torch port's OTZ1 slice against the JAX batched chain, on the CPU.
+"""The torch port's OTZ1 slice against the JAX batched chain, on the CPU,
+and the port's separation from the JAX package.
 
 Stage parity: FRONT, MID and BACK outputs equal the JAX programs'
 (``orz_tpu.device.batch`` b_front_jit / b_mid_jit / b_back_jit) on the same
@@ -6,9 +7,12 @@ padded (B=2, cap=1<<15) buffers.  Stream parity: payloads are
 byte-identical to ``encode_segments_batch(..., rings_mode=0)`` at l0, l1
 and l2 and to the sequential oracle ``refcodec.encode_segment_ref`` at l1
 and l2, and decode through the native decoder.  All outputs are integers:
-tolerance 0.
+tolerance 0.  The port's sources import nothing of ``orz_tpu``, and an
+encode and decode through the port load no module of it.
 """
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -17,9 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from orz_tpu.device.spec import CHUNK_INPUT_DEFAULT, n_chunks_for
 from orz_tpu_torch.device.host import _bucket, pad_batch
 from orz_tpu_torch.ops import batched as ob
+from orz_tpu_torch.spec import CHUNK_INPUT_DEFAULT, n_chunks_for
 from tests.conftest import make_binary_like, make_text_like
 
 torch.set_num_threads(2)
@@ -138,6 +142,7 @@ def test_container_roundtrip_three_segments():
                                         device="cpu")
     assert container.segment_retries == 0
     assert tpu_decode_bytes(comp) == data
+    assert container.torch_decode_bytes(comp) == data
 
 
 def test_empty_segment_framing(segs):
@@ -147,16 +152,6 @@ def test_empty_segment_framing(segs):
     got = encode_segments_batch([b"", segs[0][:5000]], 1, device="cpu")
     assert got[0] == encode_segment_ref(b"", 1, rings_mode=0)
     assert got[1] == encode_segment_ref(segs[0][:5000], 1, rings_mode=0)
-
-
-@pytest.mark.parametrize("how", ["level_default", "explicit"])
-def test_rings_mode_1_raises(segs, monkeypatch, how):
-    from orz_tpu_torch.device.batch import encode_segments_batch
-
-    monkeypatch.setenv("OTZ2", "1")
-    kw = {} if how == "level_default" else {"rings_mode": 1}
-    with pytest.raises(NotImplementedError, match="l2 slice"):
-        encode_segments_batch(segs, 2, device="cpu", **kw)
 
 
 def test_cuda_encode_raises_without_cuda(segs):
@@ -169,18 +164,47 @@ def test_cuda_encode_raises_without_cuda(segs):
 
 
 def test_port_never_imports_jax():
+    """A level-2 encode (the default OTZ2 schedule) and its decode load
+    neither jax nor any module of the JAX package."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
         "from orz_tpu_torch.device.container import (\n"
-        "    torch_encode_bytes, tpu_decode_bytes)\n"
+        "    torch_decode_bytes, torch_encode_bytes)\n"
         "data = bytes(range(256)) * 8 + b'the port runs on torch ' * 90\n"
         "data = data[:4096]\n"
         "comp = torch_encode_bytes(data, device='cpu')\n"
-        "assert tpu_decode_bytes(comp) == data\n"
+        "assert comp != torch_encode_bytes(data, rings_mode=0,\n"
+        "                                  device='cpu'), 'not OTZ2'\n"
+        "assert torch_decode_bytes(comp) == data\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m == 'orz_tpu' or m.startswith('orz_tpu.')]\n"
+        "assert not bad, bad\n"
     )
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("OTZ", "ORZ"))}
+    env["PYTHONPATH"] = ROOT
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
+
+
+def test_port_sources_never_import_orz_tpu():
+    paths = glob.glob(os.path.join(ROOT, "orz_tpu_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(ROOT, "chip_smoke.py")]
+    assert len(paths) > 10
+    bad = []
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            bad += [f"{os.path.relpath(path, ROOT)}:{node.lineno} {m}"
+                    for m in names
+                    if m == "orz_tpu" or m.startswith("orz_tpu.")]
+    assert not bad, bad
