@@ -16,19 +16,34 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    times of kernel and plain (plain K2 and K5 are timed once by the host
    clock: K5's is a host loop); each kernel's bound, the least time the
    card could take for the same work.
-4. cpu parity: 64 KiB text-like and binary-like segments encoded on the GPU
+4. gather: P1 (the windowed gather) at the probe's default size, m = 2^21
+   outputs from n = 2^23 words, on the probe's ascending indices and on
+   the four edge cases (in window, fill, wrap, clamp): exact equality
+   with the plain version; CUDA-event times of kernel, plain and the
+   library call src[idx], and the device times of kernel and src[idx]
+   from a torch.profiler trace, each call on the next of 4 copies of the
+   inputs (more than L2 holds); the bound.  Then P1's own path, the probe
+   (orz_tpu_torch.tools.gather_probe), which must exit 0 with ok=True and
+   launch the kernel.
+5. cpu parity: 64 KiB text-like and binary-like segments encoded on the GPU
    at l1, at l2 with rings_mode=0 and at the l2 default (OTZ2, the default
    schedule) must equal the port's CPU encode, which the CPU tests hold to
    the JAX chain and to the sequential oracle; the same data through
    torch_encode_bytes must round-trip through the native decoder.
-5. e2e l2 (the main path): 32 MiB through torch_encode_bytes(level=2) with
+6. e2e l2 (the main path): 32 MiB through torch_encode_bytes(level=2) with
    the defaults (8 MiB segments, batch 4, 2 MiB chunks), decoded by the
-   native decoder; every kernel must have launched, no segment may have
-   gone through the per-segment retry.  Then per-stage times of one
-   4 x 8 MiB l2 batch (FRONT, QUALITY scan, QUALITY tail, MID2, BACK),
-   read through encode_segments_batch's stage hook.
-6. e2e l1: the same 32 MiB at level 1 (K1, K3 and K5 must launch).
-7. profile: one warm 4 x 8 MiB encode_segments_batch at l2 and at l1 under
+   native decoder; every kernel of the encoder must have launched, no
+   segment may have gone through the per-segment retry.
+7. cli: `python -m orz_tpu_torch.cli encode -b gpu -l 2 -p 4` on the
+   same 32 MiB must write the e2e l2 stream, which `... cli decode` must
+   round-trip; a --checkpoint encode of the first 16 MiB must equal
+   torch_encode_bytes of those bytes and remove its sidecar; MB/s of each
+   process and of its own statistics (stderr).  Then
+   per-stage times of one 4 x 8 MiB l2 batch (FRONT, QUALITY scan,
+   QUALITY tail, MID2, BACK), read through encode_segments_batch's stage
+   hook.
+8. e2e l1: the same 32 MiB at level 1 (K1, K3 and K5 must launch).
+9. profile: one warm 4 x 8 MiB encode_segments_batch at l2 and at l1 under
    torch.profiler; prints the wall time, device busy time (union of
    kernel, copy and set intervals), idle share and the kernels that take
    the most device time.
@@ -40,6 +55,7 @@ is the per-kernel JSON record.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -410,6 +426,148 @@ def phase_kernels(data: bytes) -> dict:
     return rec
 
 
+def phase_gather() -> dict:
+    """P1 against its plain version at the probe's default size, on the
+    probe's indices and the four edge cases; then the probe itself, P1's
+    path, with the launch count reset just before it and read just
+    after."""
+    import torch
+
+    from orz_tpu_torch.kernels import windowed_gather as wg
+    from orz_tpu_torch.tools import gather_probe
+
+    d = gather_probe.probe_data(21)
+    src = torch.from_numpy(d["src"]).cuda()
+    n, m = src.shape[0], d["idx"].size
+    err = 0
+    for case, (idx, base) in gather_probe.edge_cases(d["idx"], d["base"],
+                                                     n).items():
+        idx, base = torch.from_numpy(idx).cuda(), torch.from_numpy(base).cuda()
+        err = max(err, require_equal(f"windowed_gather {case}",
+                                     wg.windowed_gather(src, idx, base),
+                                     wg.windowed_gather_plain(src, idx,
+                                                              base)))
+        if case == "in_window":  # the probe's indices
+            if not torch.equal(wg.windowed_gather(src, idx, base), src[idx]):
+                raise AssertionError("windowed_gather: differs from src[idx] "
+                                     "on the probe's in-window indices")
+            args = (src, idx, base)
+    # one call touches about 41 MB, which nearly fits the 50 MB L2: the
+    # timed calls cycle through 4 copies of the inputs (160 MiB), so that
+    # each call finds its inputs in device memory, not in L2
+    sets = [args] + [tuple(t.clone() for t in args) for _ in range(3)]
+
+    def cycled(fn):
+        it = itertools.cycle(sets)
+        return lambda: fn(*next(it))
+
+    def library(s, i, _b):
+        return s[i]
+
+    ms = cuda_ms(cycled(wg.windowed_gather), 20)
+    plain_ms = cuda_ms(cycled(wg.windowed_gather_plain), 5)
+    library_ms = cuda_ms(cycled(library), 20)
+    dev_ms = device_ms(cycled(wg.windowed_gather), 20, "smoke_trace_p1.json")
+    dev_library_ms = device_ms(cycled(library), 20,
+                               "smoke_trace_p1_library.json")
+    # idx read and out written once, base read once, and each distinct src
+    # word read once: every probe index lies in its window (checked above);
+    # 5 integer operations per output
+    words = int(torch.unique(args[1]).numel())
+    bd = bound(4 * (2 * m + args[2].numel() + words), 5 * m)
+    # the same at the granularity of device memory, 32-byte sectors of src
+    sectors = int(torch.unique(args[1] // 8).numel())
+    sector_ms = bound(4 * (2 * m + args[2].numel()) + 32 * sectors,
+                      5 * m)["bound_ms"]
+    del sets
+    log(f"P1 windowed_gather m={m} n={n}: equal in the 4 cases; 4 input "
+        f"sets in turn: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, src[idx] "
+        f"{library_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+        f"({bd['bound_by']}, {words} distinct src words; {sector_ms:.4f} ms "
+        f"counting the {sectors} distinct 32-byte src sectors); device time "
+        f"(profiler): kernel {dev_ms:.4f} ms, src[idx] {dev_library_ms:.4f} ms")
+
+    wg.launches = 0
+    rc = gather_probe.main([], device="cuda")  # P1's path: the probe
+    launches = wg.launches
+    if rc != 0 or launches <= 0:
+        raise AssertionError(f"gather probe: exit {rc}, {launches} launches")
+    log(f"gather probe: exit 0, {launches} windowed_gather launches")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "launches": launches, **bd}
+
+
+def phase_cli(data: bytes, stream: bytes) -> None:
+    """The port's command line in subprocesses, on the e2e l2 data: its
+    file must equal the e2e stream and decode through the CLI; a
+    --checkpoint run on the first 16 MiB must equal torch_encode_bytes of
+    those bytes and leave no sidecar.  MB/s by the host clock around each
+    subprocess (process start, torch import and CUDA set-up included), and
+    the speed of the CLI's own statistics (from the end of its start-up);
+    the runs are not silent (-s) so that it prints them, to stderr."""
+    import torch
+
+    from orz_tpu_torch.device import container
+
+    work = os.path.join(ROOT, "build", "smoke_cli")
+    os.makedirs(work, exist_ok=True)
+    path = {k: os.path.join(work, k) for k in
+            ("in.bin", "out.orz", "back.bin", "in16.bin", "out16.orz",
+             "ck.json")}
+    half = data[:16 * MIB]
+    with open(path["in.bin"], "wb") as f:
+        f.write(data)
+    with open(path["in16.bin"], "wb") as f:
+        f.write(half)
+    torch.cuda.empty_cache()  # room for the subprocesses
+
+    def cli(*argv) -> tuple[float, str]:
+        """Wall seconds, and the speed line of the statistics that the CLI
+        prints to stderr (timed from its start-up's end)."""
+        t = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "orz_tpu_torch.cli",
+                              *argv], cwd=ROOT, capture_output=True,
+                             text=True, timeout=600)
+        wall = time.perf_counter() - t
+        if res.returncode != 0:
+            raise AssertionError(f"cli {argv[0]}: exit {res.returncode}: "
+                                 f"{res.stderr[-3000:]}")
+        speed = [ln.split(":", 1)[1].strip() for ln in res.stderr.splitlines()
+                 if ln.strip().startswith("speed:")]
+        return wall, speed[-1] if speed else "no statistics"
+
+    def read(name) -> bytes:
+        with open(path[name], "rb") as f:
+            return f.read()
+
+    enc_s, enc_stat = cli("encode", "-b", "gpu", "-l", "2", "-p", "4",
+                          path["in.bin"], path["out.orz"])
+    if read("out.orz") != stream:
+        raise AssertionError("cli: the encode differs from the e2e l2 stream")
+    dec_s, dec_stat = cli("decode", "-b", "gpu", path["out.orz"],
+                          path["back.bin"])
+    if read("back.bin") != data:
+        raise AssertionError("cli: decode does not round-trip")
+    ck_s, ck_stat = cli("encode", "-b", "gpu", "-l", "2", "-p", "4",
+                        "--checkpoint", path["ck.json"], path["in16.bin"],
+                        path["out16.orz"])
+    if read("out16.orz") != container.torch_encode_bytes(half, level=2,
+                                                         device="cuda"):
+        raise AssertionError("cli: the --checkpoint encode differs from "
+                             "torch_encode_bytes")
+    if os.path.exists(path["ck.json"]):
+        raise AssertionError("cli: the --checkpoint sidecar was left behind")
+    log(f"cli l2 -p 4, MB/s of the whole process (its own statistics): "
+        f"encode {len(data) / 1e6 / enc_s:.3f} ({enc_stat}; {enc_s:.2f} s), "
+        f"equal to the e2e stream; decode {len(data) / 1e6 / dec_s:.3f} "
+        f"({dec_stat}; {dec_s:.2f} s), round trip ok; --checkpoint 16 MiB "
+        f"{len(half) / 1e6 / ck_s:.3f} ({ck_stat}; {ck_s:.2f} s), equal to "
+        f"torch_encode_bytes, no sidecar left")
+    for p in path.values():
+        if os.path.exists(p):
+            os.remove(p)
+
+
 def phase_cpu_parity(seed: int) -> None:
     from orz_tpu_torch.device import container
     from orz_tpu_torch.device.batch import encode_segments_batch
@@ -446,17 +604,19 @@ def _kernel_modules() -> dict:
         match_depth_masked,
         symrank,
         walk_mask,
+        windowed_gather,
     )
 
     return {"match_depth": match_depth,
             "match_depth_masked": match_depth_masked,
             "fence_walk": fence_walk, "walk_mask": walk_mask,
-            "symrank": symrank}
+            "symrank": symrank, "windowed_gather": windowed_gather}
 
 
-def e2e(data: bytes, level: int, path_kernels) -> dict:
+def e2e(data: bytes, level: int, path_kernels) -> tuple[dict, bytes]:
     """Two passes of torch_encode_bytes at `level` (counts reset just
-    before the first and read just after it) and a native decode."""
+    before the first and read just after it) and a native decode; returns
+    the counts and the stream."""
     import torch
 
     from orz_tpu_torch.device import batch, container
@@ -503,7 +663,7 @@ def e2e(data: bytes, level: int, path_kernels) -> dict:
         f"encode (warm pass) {len(data) / 1e6 / warm_s:.3f} MB/s "
         f"({warm_s:.3f} s), native decode {dec_s:.3f} s, peak device "
         f"memory {peak / 2**30:.3f} GiB")
-    return launches
+    return launches, comp
 
 
 def phase_stages(data: bytes) -> None:
@@ -534,6 +694,39 @@ def phase_stages(data: bytes) -> None:
         f"{4 * 8 * MIB / 1e3 / wall:.3f} MB/s")
 
 
+def device_events(prof, name: str) -> list[dict]:
+    """The device events (kernels, copies, sets) of a finished
+    torch.profiler run, from its trace, which is kept as build/<name>."""
+    path = os.path.join(ROOT, "build", name)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        raise AssertionError(f"{name}: the trace holds no device events")
+    return dev
+
+
+def device_ms(fn, reps: int, name: str) -> float:
+    """Mean device time per call of fn(): the summed durations of the
+    device events in a torch.profiler trace of `reps` calls (after one
+    warm-up call).  Unlike CUDA events around the calls, it leaves out the
+    gaps in which the card waits for the host to launch the next one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e["dur"] for e in device_events(prof, name)) / 1e3 / reps
+
+
 def phase_profile(data: bytes, level: int) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -549,15 +742,7 @@ def phase_profile(data: bytes, level: int) -> None:
         encode_segments_batch(segs, level, device="cuda")
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    path = os.path.join(ROOT, "build", f"smoke_profile_l{level}.json")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    dev = [e for e in events if e.get("ph") == "X"
-           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    if not dev:
-        raise AssertionError("profile: the trace holds no device events")
+    dev = device_events(prof, f"smoke_profile_l{level}.json")
     busy_us, end = 0.0, float("-inf")
     for e in sorted(dev, key=lambda e: e["ts"]):  # union of intervals
         lo, hi = max(e["ts"], end), e["ts"] + e["dur"]
@@ -586,7 +771,11 @@ KERNEL_INFO = {
                   "orz_tpu/ops/walk_pallas.py:171"),
     "symrank": ("orz_tpu_torch/csrc/symrank.cu",
                 "orz_tpu/ops/symrank_pallas.py:204"),
+    "windowed_gather": ("orz_tpu_torch/csrc/windowed_gather.cu",
+                        "tools/gather_probe.py:74"),
 }
+ENCODER_KERNELS = ["match_depth", "match_depth_masked", "fence_walk",
+                   "walk_mask", "symrank"]  # the l2 main path's
 
 
 def main() -> int:
@@ -604,16 +793,20 @@ def main() -> int:
     log(f"data: {len(data)} bytes from seed {args.seed} "
         f"({time.perf_counter() - t:.1f} s)")
     rec = phase_kernels(data)
+    rec["windowed_gather"] = phase_gather()  # with P1's path, the probe
     phase_cpu_parity(args.seed)
-    launches = e2e(data, 2, list(KERNEL_INFO))  # the main path
+    launches, stream = e2e(data, 2, ENCODER_KERNELS)  # the main path
+    for k in ENCODER_KERNELS:
+        rec[k].update(launches=launches[k], library_ms=None)
+    phase_cli(data, stream)
+    del stream
     phase_stages(data)
     e2e(data, 1, ["match_depth", "fence_walk", "symrank"])
     phase_profile(data, 2)
     phase_profile(data, 1)
     kernels = [
         {"name": k, "route": "cuda", "source": KERNEL_INFO[k][0],
-         "replaces": KERNEL_INFO[k][1], "launches": launches[k],
-         "library_ms": None, **rec[k]}
+         "replaces": KERNEL_INFO[k][1], **rec[k]}
         for k in KERNEL_INFO
     ]
     print(json.dumps({"kernels": kernels}))

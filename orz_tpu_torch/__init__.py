@@ -15,11 +15,16 @@ Layout:
   first use.
 - ``spec.py``, ``bitio.py``: the format constants and knobs, and the bit
   writer.
+- ``cli.py``: the command line (``python -m orz_tpu_torch.cli
+  encode|decode -b gpu``), with ``checkpoint.py`` (``--checkpoint``) and
+  ``progress.py`` (its progress loggers).
+- ``tools/``: ``gather_probe.py``, the probe of the windowed gather.
 
 The package imports nothing of the JAX package ``orz_tpu``: the format
-constants, the bit writer, the container framing and the native decoder's
-loader are copies (``spec``, ``bitio``, ``device/pcontainer``,
-``device/container``), which ``tests/test_torch_host.py`` pins to their
-originals.  The decoder itself is built from ``csrc/otz_core.cpp`` at the
+constants, the bit writer, the container framing, the native decoder's
+loader, the progress loggers and the checkpoint sidecar are copies
+(``spec``, ``bitio``, ``device/pcontainer``, ``device/container``,
+``progress``, ``checkpoint``), which ``tests/test_torch_host.py`` pins to
+their originals.  The decoder itself is built from ``csrc/otz_core.cpp`` at the
 repository root, the same source the JAX package builds.
 """

@@ -22,12 +22,8 @@ import torch
 
 from orz_tpu_torch.device.batch import encode_segments_batch
 from orz_tpu_torch.device.host import _bucket_capacity
-from orz_tpu_torch.device.pcontainer import (
-    TPU_MAGIC,
-    ProgressLogger,
-    pipe_decode,
-    pipe_encode,
-)
+from orz_tpu_torch.device.pcontainer import TPU_MAGIC, pipe_decode, pipe_encode
+from orz_tpu_torch.progress import ProgressLogger
 from orz_tpu_torch.spec import CHUNK_INPUT_DEFAULT
 
 DEFAULT_SEGMENT_SIZE = 1 << 23  # 8 MiB
@@ -38,21 +34,13 @@ DEFAULT_BATCH = 4  # segments per batched device call
 segment_retries = 0
 
 
-def torch_encode(
-    source,
-    target,
-    level: int = 2,
-    segment_size: int = DEFAULT_SEGMENT_SIZE,
-    chunk_input: int = CHUNK_INPUT_DEFAULT,
-    batch: int = DEFAULT_BATCH,
-    progress: ProgressLogger | None = None,
-    rings_mode: int | None = None,
-    device: str | torch.device = "cuda",
-) -> None:
-    """Stream-encode into the ORZT container, `batch` segments per device
-    call.  rings_mode: None = the level's default (OTZ2 from level 2);
-    0/1 force OTZ1/OTZ2."""
-    batch = max(batch, 1)
+def segment_encoders(level: int = 2, segment_size: int = DEFAULT_SEGMENT_SIZE,
+                     chunk_input: int = CHUNK_INPUT_DEFAULT,
+                     rings_mode: int | None = None,
+                     device: str | torch.device = "cuda"):
+    """(encode_batch, encode_one) of the batched chain, for
+    ``pipe_encode``'s loop: a batch of full segments shares the bucket of
+    `segment_size`; encode_one is the per-segment retry (B=1)."""
     cap = _bucket_capacity(segment_size)
 
     def encode_batch(segs):
@@ -69,8 +57,36 @@ def torch_encode(
         return encode_segments_batch([seg], level, chunk_input,
                                      rings_mode=rings_mode, device=device)[0]
 
-    pipe_encode(source, target, encode_batch, encode_one, TPU_MAGIC,
-                segment_size, batch, progress)
+    return encode_batch, encode_one
+
+
+def torch_encode(
+    source,
+    target,
+    level: int = 2,
+    num_streams: int | None = None,  # alias for `batch` (CLI -p)
+    segment_size: int = DEFAULT_SEGMENT_SIZE,
+    chunk_input: int = CHUNK_INPUT_DEFAULT,
+    batch: int | None = None,  # default DEFAULT_BATCH
+    progress: ProgressLogger | None = None,
+    rings_mode: int | None = None,
+    device: str | torch.device = "cuda",
+) -> None:
+    """Stream-encode into the ORZT container, `batch` segments per device
+    call; the arguments are ``tpu_encode``'s, and `num_streams` is an alias
+    for `batch` (pass one of the two).  rings_mode: None = the level's
+    default (OTZ2 from level 2); 0/1 force OTZ1/OTZ2."""
+    if num_streams is not None:
+        if batch is not None and batch != num_streams:
+            raise ValueError(f"num_streams={num_streams} and batch={batch}: "
+                             f"num_streams is an alias of batch, pass one")
+        batch = num_streams
+    if batch is None:
+        batch = DEFAULT_BATCH
+    pipe_encode(source, target,
+                *segment_encoders(level, segment_size, chunk_input,
+                                  rings_mode, device),
+                TPU_MAGIC, segment_size, batch, progress)
 
 
 def torch_encode_bytes(data: bytes, level: int = 2, **kw) -> bytes:

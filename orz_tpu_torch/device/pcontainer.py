@@ -2,7 +2,7 @@
 
 The wire format of ``orz_tpu/pcontainer.py`` (TPU_MAGIC), with the byte
 counters and length varints of ``orz_tpu/ioutil.py`` (reference
-src/ioutil.rs) and the progress interface of ``orz_tpu/progress.py``:
+src/ioutil.rs); the progress interface is ``orz_tpu_torch/progress.py``:
 
     magic (5 bytes)
     varint(segment_size)
@@ -14,41 +14,20 @@ src/ioutil.rs) and the progress interface of ``orz_tpu/progress.py``:
 flight (the original's default); an EOF leftover batch is padded with
 copies of its first segment and the padding's payloads are dropped.  A
 batch call that raises is retried segment by segment through
-``encode_one``.  ``tests/test_torch_host.py`` holds the bytes to the
-original's.
+``encode_one``.  ``encoded_segments`` is that loop, which
+``orz_tpu_torch/checkpoint.py`` shares.  ``tests/test_torch_host.py`` holds
+the bytes to the original's.
 """
 
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
 
+from orz_tpu_torch.progress import ProgressLogger, SilentProgressLogger
+
 TPU_MAGIC = b"ORZT\x01"
+PARALLEL_MAGIC = b"ORZP\x01"  # the host backends' container (not ported)
 MAGIC_LEN = 5
-
-
-class ProgressLogger:
-    """set_is_encode / log / finish, as ``orz_tpu.progress`` (reference
-    src/progress.rs); any object with these methods will do."""
-
-    def set_is_encode(self, is_encode: bool) -> None:
-        raise NotImplementedError
-
-    def log(self, num_input_bytes: int, num_output_bytes: int) -> None:
-        raise NotImplementedError
-
-    def finish(self, num_input_bytes: int, num_output_bytes: int) -> None:
-        raise NotImplementedError
-
-
-class SilentProgressLogger(ProgressLogger):
-    def set_is_encode(self, is_encode: bool) -> None:
-        pass
-
-    def log(self, num_input_bytes: int, num_output_bytes: int) -> None:
-        pass
-
-    def finish(self, num_input_bytes: int, num_output_bytes: int) -> None:
-        pass
 
 
 class CountRead:
@@ -111,35 +90,29 @@ def read_len(source) -> int:
     return length
 
 
-def pipe_encode(source, target, encode_batch, encode_one, magic: bytes,
-                segment_size: int, batch: int,
-                progress: ProgressLogger | None = None) -> None:
-    """Read `segment_size` segments, encode `batch` per encode_batch call,
-    and frame the payloads in file order."""
-    progress = progress or SilentProgressLogger()
-    progress.set_is_encode(True)
-    source = CountRead(source)
-    target = CountWrite(target)
-    target.write(magic)
-    write_len(target, segment_size)
+def _read_segment(source, segment_size: int) -> bytes:
+    """Up to `segment_size` bytes of `source` (fewer only at EOF)."""
+    chunks = []
+    remaining = segment_size
+    while remaining > 0:
+        piece = source.read(min(remaining, 1 << 22))
+        if not piece:
+            break
+        chunks.append(piece)
+        remaining -= len(piece)
+    return b"".join(chunks)
+
+
+def encoded_segments(source, encode_batch, encode_one, segment_size: int,
+                     batch: int):
+    """Yield (segment length, payload) in file order: `segment_size`
+    segments read `batch` at a time and encoded by one encode_batch call."""
     bsz = max(batch, 1)
-
-    def read_segment() -> bytes:
-        chunks = []
-        remaining = segment_size
-        while remaining > 0:
-            piece = source.read(min(remaining, 1 << 22))
-            if not piece:
-                break
-            chunks.append(piece)
-            remaining -= len(piece)
-        return b"".join(chunks)
-
     eof = False
     while not eof:
         segs = []
         while len(segs) < bsz:
-            seg = read_segment()
+            seg = _read_segment(source, segment_size)
             if not seg:
                 eof = True
                 break
@@ -154,10 +127,25 @@ def pipe_encode(source, target, encode_batch, encode_one, magic: bytes,
             # out of memory, a transient error) re-encodes its segments one
             # at a time; a second failure propagates
             payloads = [encode_one(s) for s in segs]
-        for payload in payloads:
-            write_len(target, len(payload))
-            target.write(payload)
-            progress.log(source.count(), target.count())
+        yield from zip((len(s) for s in segs), payloads)
+
+
+def pipe_encode(source, target, encode_batch, encode_one, magic: bytes,
+                segment_size: int, batch: int,
+                progress: ProgressLogger | None = None) -> None:
+    """Read `segment_size` segments, encode `batch` per encode_batch call,
+    and frame the payloads in file order."""
+    progress = progress or SilentProgressLogger()
+    progress.set_is_encode(True)
+    source = CountRead(source)
+    target = CountWrite(target)
+    target.write(magic)
+    write_len(target, segment_size)
+    for _, payload in encoded_segments(source, encode_batch, encode_one,
+                                       segment_size, batch):
+        write_len(target, len(payload))
+        target.write(payload)
+        progress.log(source.count(), target.count())
     write_len(target, 0)
     progress.finish(source.count(), target.count())
 

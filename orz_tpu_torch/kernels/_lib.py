@@ -31,6 +31,7 @@ _SIGNATURES = {
     "otz_match_depth": [_P] * 9 + [_I] * 13 + [_P],
     "otz_fence_walk": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "otz_symrank": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "otz_windowed_gather": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None

@@ -163,6 +163,39 @@ def test_cuda_payloads_equal_cpu_payloads(batch, level, rings_mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["in_window", "fill", "wrap", "clamp"])
+def test_windowed_gather_kernel_matches_plain(cuda, case):
+    """P1 on the probe's arrays at m = 2^16 and its four edge cases."""
+    from orz_tpu_torch.kernels import windowed_gather as wg
+    from orz_tpu_torch.tools.gather_probe import edge_cases, probe_data
+
+    d = probe_data(16)
+    idx, base = edge_cases(d["idx"], d["base"], d["src"].size)[case]
+    src, idx, base = (torch.from_numpy(a).to(cuda)
+                      for a in (d["src"], idx, base))
+    before = wg.launches
+    got = wg.windowed_gather(src, idx, base)
+    torch.cuda.synchronize()
+    assert wg.launches == before + 1
+    assert torch.equal(got, wg.windowed_gather_plain(src, idx, base))
+
+
+@pytest.mark.cuda
+def test_cli_on_card_equals_cpu(batch, tmp_path):
+    """The CLI's l1 file on the card equals its file on the CPU."""
+    from orz_tpu_torch import cli
+
+    src = tmp_path / "in.bin"
+    src.write_bytes(batch[0][0][: 1 << 16])
+    outs = {}
+    for device in ("cuda", "cpu"):
+        outs[device] = tmp_path / f"{device}.orz"
+        assert cli.main(["encode", "-s", "-l", "1", str(src),
+                         str(outs[device])], device=device) == 0
+    assert outs["cuda"].read_bytes() == outs["cpu"].read_bytes()
+
+
+@pytest.mark.cuda
 def test_cuda_otz1_fallback_equals_cpu(batch, monkeypatch):
     """A segment whose repair failed takes the OTZ1 path on the card as on
     the CPU, and its payload is the plain rings_mode=0 encode."""

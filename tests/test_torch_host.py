@@ -4,10 +4,11 @@ The port imports nothing of ``orz_tpu``: it carries copies of the host
 names it needs, in ``orz_tpu_torch/device/host.py`` (from
 device/pipeline.py, ops/analyze.py, ops/symrank_pallas.py),
 ``orz_tpu_torch/spec.py`` (device/spec.py, constants.py),
-``orz_tpu_torch/bitio.py`` (golden/bitio.py) and
+``orz_tpu_torch/bitio.py`` (golden/bitio.py),
 ``orz_tpu_torch/device/pcontainer.py`` and ``container.py`` (pcontainer.py,
-ioutil.py, progress.py, native/otz.py).  These tests pin each copy to its
-original.
+ioutil.py, native/otz.py), ``orz_tpu_torch/progress.py`` (progress.py) and
+``orz_tpu_torch/checkpoint.py`` (checkpoint.py's sidecar).  These tests pin
+each copy to its original.
 """
 
 import io
@@ -229,6 +230,49 @@ def test_failed_batch_is_retried_per_segment():
     back = io.BytesIO()
     tpc.pipe_decode(io.BytesIO(out.getvalue()), back, bytes, tpc.TPU_MAGIC, 1)
     assert back.getvalue() == data
+
+
+def test_checkpoint_sidecar_matches_original(tmp_path):
+    from orz_tpu.checkpoint import CheckpointState
+    from orz_tpu_torch.checkpoint import CheckpointState as Ours
+
+    ours, theirs = tmp_path / "ours.json", tmp_path / "theirs.json"
+    state = (tpc.TPU_MAGIC, 1 << 23, 3 << 23, 123456789, 3)
+    Ours(str(ours)).save(*state)
+    CheckpointState(str(theirs)).save(*state)
+    assert ours.read_text() == theirs.read_text()
+    assert Ours(str(theirs)).load() == CheckpointState(str(ours)).load()
+    for text in ("{not json", '{"format": 2}'):  # both ignored
+        ours.write_text(text)
+        assert Ours(str(ours)).load() is None
+        assert CheckpointState(str(ours)).load() is None
+    Ours(str(ours)).clear()
+    assert not ours.exists()
+
+
+@pytest.mark.parametrize("is_encode", [True, False])
+def test_progress_lines_match_original(monkeypatch, is_encode):
+    import time
+
+    from orz_tpu.progress import SimpleProgressLogger
+    from orz_tpu_torch import progress
+
+    def lines(cls):
+        clock = iter([100.0, 100.5, 101.25, 103.0])  # start, 2 logs, finish
+        monkeypatch.setattr(time, "monotonic", lambda: next(clock))
+        out = io.StringIO()
+        logger = cls(stream=out)
+        logger.set_is_encode(is_encode)
+        logger.log(1 << 20, 300_000)
+        logger.log(3 << 20, 700_001)
+        logger.finish(5 << 20, 1_000_003)
+        return out.getvalue()
+
+    ours = lines(progress.SimpleProgressLogger)
+    assert ours == lines(SimpleProgressLogger)
+    assert "statistics:" in ours and "MB/s" in ours
+    assert progress.SilentProgressLogger().finish(1, 1) is None
+    assert tpc.SilentProgressLogger is progress.SilentProgressLogger
 
 
 def test_native_decoder_loader_matches():
