@@ -6,7 +6,8 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 
 1. device: the card's name and power limit; CUDA must be available.
 2. build: nvcc builds the kernels from orz_tpu_torch/csrc, one process per
-   source, all started together.
+   source, all started together; prints ptxas's registers, shared memory
+   and spills for each kernel.
 3. kernels: K1 (match depth, depth 8 and 32), K2 (masked match depth,
    depth 384 with near gating at 96: the iteration cap 4094 and the
    conform's two-tier cap 32766/4094, on the port's own plan and FRONT
@@ -15,14 +16,21 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    FRONT and MID.  Exact equality with the plain versions; CUDA-event
    times of kernel and plain (plain K2 and K5 are timed once by the host
    clock: K5's is a host loop); each kernel's bound, the least time the
-   card could take for the same work.
+   card could take for the same work.  K1/K2 also print their walked
+   pairs (same-key candidates within reach that the kernel's walk visits;
+   K2: mask-1 candidates only) beside the slots and the mask density; K5
+   its kernel's device time from a torch.profiler trace (the CUDA-event
+   time includes the wrapper's sort), max_chain (the largest (segment,
+   context) item count) and chain_ms, the kernel's device time on that
+   (segment, context)'s items alone (its serial chain, which no other
+   context shortens), with the latency per item it implies.
 4. gather: P1 (the windowed gather) at the probe's default size, m = 2^21
    outputs from n = 2^23 words, on the probe's ascending indices and on
    the four edge cases (in window, fill, wrap, clamp): exact equality
    with the plain version; CUDA-event times of kernel, plain and the
-   library call src[idx], and the device times of kernel and src[idx]
-   from a torch.profiler trace, each call on the next of 4 copies of the
-   inputs (more than L2 holds); the bound.  Then P1's own path, the probe
+   library call src[idx], the device times of kernel and src[idx] from a
+   torch.profiler trace and the host time to issue each call, each call
+   on the next of 4 copies of the inputs (more than L2 holds); the bound.  Then P1's own path, the probe
    (orz_tpu_torch.tools.gather_probe), which must exit 0 with ok=True and
    launch the kernel.
 5. cpu parity: 64 KiB text-like and binary-like segments encoded on the GPU
@@ -149,6 +157,23 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def host_ms(fn, reps: int) -> float:
+    """Mean host milliseconds to issue one call of fn() (one warm-up call
+    first), with no synchronisation inside the timed loop: where the card
+    finishes each call before the host issues the next, this is what a
+    call costs."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
 def max_abs_err(a, b) -> int:
     import torch
 
@@ -170,6 +195,15 @@ def require_equal(name: str, a, b) -> int:
 
 
 # --- phases -------------------------------------------------------------------
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()
+    return float(out[0]) * 1e6
 
 
 def phase_device() -> dict:
@@ -197,6 +231,11 @@ def phase_build() -> None:
     path = _lib.library()._name
     log(f"build: {time.perf_counter() - t:.2f} s -> "
         f"{os.path.relpath(path, ROOT)}")
+    for out in _lib.build_log:  # empty when the library was already built
+        for ln in out.splitlines():
+            if ln.endswith(":") or "Compiling entry" in ln or "Used" in ln \
+                    or "spill" in ln:
+                log(f"  {ln.strip()}")
 
 
 def _batch_inputs(data: bytes, seg: int, bsz: int):
@@ -237,7 +276,10 @@ def match_bound(msk, msp, rank_s, dw_s, end, depth: int, ro_cap: int,
     when it compares a pair (its LCP cap); and each slot's dwords read up
     to the first that differs, the deepest over its compared pairs, within
     the cap.  Operations: 3 (compare the key, subtract the ranks, compare
-    the offset) per same-key pair within the window."""
+    the offset) per same-key pair within the window.  Also returns
+    ``walked_pairs``: the same-key pairs within each query's reach whose
+    candidate the kernel's walk visits (K2: mask 1), the walk's work
+    before its stops at the cap."""
     import torch
 
     from orz_tpu_torch.device.host import N_DW
@@ -251,7 +293,7 @@ def match_bound(msk, msp, rank_s, dw_s, end, depth: int, ro_cap: int,
     need_rank = torch.zeros_like(msk, dtype=torch.bool)
     need_pos = torch.zeros_like(msk, dtype=torch.bool)
     n_dw = torch.zeros(bsz * n, dtype=torch.int64, device=msk.device)
-    pairs = 0
+    pairs = walked = 0
     for j in range(1, min(depth, n - 1) + 1):
         same = torch.zeros_like(need_rank)
         same[:, j:] = msk[:, j:] == msk[:, :-j]
@@ -265,6 +307,7 @@ def match_bound(msk, msp, rank_s, dw_s, end, depth: int, ro_cap: int,
             gated = gated & shift_dn(mask_s, j, False)
         else:
             pairs += int(gated.sum())
+        walked += int(gated.sum())
         need_rank |= gated
         need_rank[:, :-j] |= gated[:, j:]
         ok = gated & (rank_s - 1 - shift_dn(rank_s, j, 0) < ro_cap)
@@ -280,7 +323,7 @@ def match_bound(msk, msp, rank_s, dw_s, end, depth: int, ro_cap: int,
     nbytes = (bsz * n * (4 + 12 + (1 if mask_s is not None else 0))
               + 4 * (int(need_rank.sum()) + int(need_pos.sum())
                      + int(n_dw.sum()) + bsz))
-    return bound(nbytes, 3 * pairs)
+    return dict(bound(nbytes, 3 * pairs), walked_pairs=walked)
 
 
 def walk_bound(n_items_total: int, bsz: int, n: int, counts: bool) -> dict:
@@ -297,7 +340,7 @@ def phase_kernels(data: bytes) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     import torch
 
-    from orz_tpu_torch.device.host import _bucket
+    from orz_tpu_torch.device.host import C, _bucket
     from orz_tpu_torch.kernels import (
         fence_walk,
         match_depth,
@@ -334,7 +377,9 @@ def phase_kernels(data: bytes) -> dict:
         bd = match_bound(*args, RING)
         log(f"K1 match_depth depth {depth} B=4 n={n}: equal, kernel "
             f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{bd['bound_ms']:.3f} ms ({bd['bound_by']})")
+            f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}); {bsz * n} slots, "
+            f"{bd['walked_pairs']} walked pairs "
+            f"({bd['walked_pairs'] / (bsz * n):.2f} a slot)")
         if depth == 32:  # FRONT's depth at l2, the main path
             rec["match_depth"] = dict(max_abs_err=err, ms=ms,
                                       plain_ms=plain_ms, **bd)
@@ -367,7 +412,9 @@ def phase_kernels(data: bytes) -> dict:
             f"ro_cap {ro_cap} near cap {near_cap} B=4 n={n}: equal, "
             f"{int((got[0] >= 0).sum())} matches, kernel {ms:.3f} ms, plain "
             f"{plain_ms:.1f} ms (once), bound {bd['bound_ms']:.3f} ms "
-            f"({bd['bound_by']})")
+            f"({bd['bound_by']}); {bsz * n} slots, mask density "
+            f"{float(mask_s.float().mean()):.4f}, {bd['walked_pairs']} "
+            f"walked pairs ({bd['walked_pairs'] / (bsz * n):.2f} a slot)")
         if variant == "iteration":  # QUALITY's 11 deep steps
             rec["match_depth_masked"] = dict(max_abs_err=err, ms=ms,
                                              plain_ms=plain_ms, **bd)
@@ -415,14 +462,42 @@ def phase_kernels(data: bytes) -> dict:
     plain_ms = (time.perf_counter() - t) * 1e3
     err = require_equal("symrank", got, want)
     ms = cuda_ms(lambda: symrank.symrank(*args), 3)
+    dev_ms = device_ms(lambda: symrank.symrank(*args), 3,
+                       "smoke_trace_k5.json", kernel="symrank_kernel")
     n_it = int(args[3].sum())
     m = args[0].shape[1]
     # symbol, sr_unlikely and sr_ctx of each item and the census orders
     # read once, coded written once; 10 operations per item
     bd = bound(12 * n_it + 4 * 4 * 431 + 4 * 4 * m, 10 * n_it)
-    log(f"K5 symrank B=4 x 8 MiB ({n_it} items): equal, kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.1f} ms (host loop), bound {bd['bound_ms']:.3f} ms")
-    rec["symrank"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bd)
+    # the serial chain: the busiest (segment, context), its items alone in
+    # one segment (same order, same census order), timed on the card
+    live = torch.arange(m, device=args[0].device) < args[3].view(-1, 1)
+    per_ctx = torch.zeros((live.shape[0], C), dtype=torch.int64,
+                          device=live.device)
+    per_ctx.scatter_add_(1, args[2].long().clamp(0, C - 1), live.long())
+    max_chain = int(per_ctx.max())
+    b, ctx = divmod(int(per_ctx.argmax()), C)
+    (k,) = (live[b] & (args[2][b] == ctx)).nonzero(as_tuple=True)
+    one = (args[0][b, k][None], args[1][b, k][None], args[2][b, k][None],
+           torch.tensor([max_chain], dtype=torch.int32, device=k.device),
+           args[4][b][None])
+    require_equal("symrank on the busiest context alone",
+                  symrank.symrank(*one)[0], got[b, k])
+    chain_ms = device_ms(lambda: symrank.symrank(*one), 3,
+                         "smoke_trace_k5_chain.json", kernel="symrank_kernel")
+    item_ns = chain_ms * 1e6 / max_chain
+    log(f"K5 symrank B=4 x 8 MiB ({n_it} items): equal, kernel {ms:.3f} ms "
+        f"(CUDA events, with the wrapper's sort), device time of the "
+        f"kernel {dev_ms:.3f} ms (profiler), plain {plain_ms:.1f} ms (host "
+        f"loop), bound {bd['bound_ms']:.3f} ms; max_chain {max_chain} items "
+        f"(segment {b}, context {ctx}), chain_ms {chain_ms:.3f} ms (device "
+        f"time of the kernel on those items alone, equal to their codes "
+        f"above): {item_ns:.2f} ns an item, "
+        f"{item_ns * max_sm_clock_hz() / 1e9:.1f} cycles at the "
+        f"{max_sm_clock_hz() / 1e6:.0f} MHz maximum SM clock")
+    rec["symrank"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          device_ms=dev_ms, max_chain=max_chain,
+                          chain_ms=chain_ms, **bd)
     return rec
 
 
@@ -470,6 +545,8 @@ def phase_gather() -> dict:
     dev_ms = device_ms(cycled(wg.windowed_gather), 20, "smoke_trace_p1.json")
     dev_library_ms = device_ms(cycled(library), 20,
                                "smoke_trace_p1_library.json")
+    host = host_ms(cycled(wg.windowed_gather), 200)
+    host_library = host_ms(cycled(library), 200)
     # idx read and out written once, base read once, and each distinct src
     # word read once: every probe index lies in its window (checked above);
     # 5 integer operations per output
@@ -485,7 +562,9 @@ def phase_gather() -> dict:
         f"{library_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
         f"({bd['bound_by']}, {words} distinct src words; {sector_ms:.4f} ms "
         f"counting the {sectors} distinct 32-byte src sectors); device time "
-        f"(profiler): kernel {dev_ms:.4f} ms, src[idx] {dev_library_ms:.4f} ms")
+        f"(profiler): kernel {dev_ms:.4f} ms, src[idx] {dev_library_ms:.4f} ms; "
+        f"host time to issue a call: kernel {host:.4f} ms, src[idx] "
+        f"{host_library:.4f} ms")
 
     wg.launches = 0
     rc = gather_probe.main([], device="cuda")  # P1's path: the probe
@@ -702,29 +781,34 @@ def device_events(prof, name: str) -> list[dict]:
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    dev = [e for e in events if e.get("ph") == "X"
-           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    if not dev:
-        raise AssertionError(f"{name}: the trace holds no device events")
-    return dev
+    return [e for e in events if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
 
 
-def device_ms(fn, reps: int, name: str) -> float:
+def device_ms(fn, reps: int, name: str, kernel: str | None = None) -> float:
     """Mean device time per call of fn(): the summed durations of the
-    device events in a torch.profiler trace of `reps` calls (after one
-    warm-up call).  Unlike CUDA events around the calls, it leaves out the
-    gaps in which the card waits for the host to launch the next one."""
+    device events (those whose name contains `kernel`, if given) in a
+    torch.profiler trace of `reps` calls (after one warm-up call).  Unlike
+    CUDA events around the calls, it leaves out the gaps in which the card
+    waits for the host to launch the next one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e["dur"] for e in device_events(prof, name)) / 1e3 / reps
+    for _ in range(3):  # a trace now and then comes back without them
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in device_events(prof, name)
+                  if kernel is None or kernel in e["name"]]
+        if events:
+            return sum(e["dur"] for e in events) / 1e3 / reps
+        log(f"{name}: the trace holds no device events"
+            + (f" named {kernel}" if kernel else "") + "; tracing again")
+    raise AssertionError(f"{name}: three traces without the device events")
 
 
 def phase_profile(data: bytes, level: int) -> None:
@@ -743,6 +827,9 @@ def phase_profile(data: bytes, level: int) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     dev = device_events(prof, f"smoke_profile_l{level}.json")
+    if not dev:
+        raise AssertionError(f"profile l{level}: the trace holds no device "
+                             f"events")
     busy_us, end = 0.0, float("-inf")
     for e in sorted(dev, key=lambda e: e["ts"]):  # union of intervals
         lo, hi = max(e["ts"], end), e["ts"] + e["dur"]

@@ -1,60 +1,124 @@
 // K1 and K2: the candidate depth loop of the match finder.
 //
 // Replaces the Pallas kernel orz_tpu/ops/match_pallas.py match_depth_pallas:
-// K1 is _make_kernel(masked=False) (FRONT), K2 is _make_kernel(masked=True)
-// (the OTZ2 iterations and conform analyses).  The TPU kernel runs `depth`
-// shift-compare-select rounds over (ROWS, 128) VMEM tiles with lane
-// rotations and a row halo.
+// K1 is _make_kernel(masked=False) (FRONT, called at :258), K2 is
+// _make_kernel(masked=True) (:63; the OTZ2 iterations and conform
+// analyses).  The TPU kernel runs `depth` shift-compare-select rounds over
+// (ROWS, 128) VMEM tiles with lane rotations and a row halo.
 //
 // Input: every position of B segments sorted by (match key, position), so the
-// j-th previous same-key candidate of slot i sits at slot i-j.  For each slot
-// i and j = 1..depth (inclusive), candidate i-j is valid when its key equals
-// slot i's and ro = rank_s[i]-1-rank_s[i-j] < ro_cap; its LCP is the count of
-// equal leading bytes over the 16 payload dwords (64 bytes), capped by the
-// fence room and the segment end, and it must reach min_match_len_for_ro(ro).
-// Score lcp*1024 + (1023-j); a strictly greater score wins, so ties keep the
-// more recent candidate.
+// j-th previous same-key candidate of slot i sits at slot i-j and each key's
+// slots are contiguous.  For each slot i and j = 1..depth (inclusive),
+// candidate i-j is valid when its key equals slot i's and ro = rank_s[i]-1-
+// rank_s[i-j] < ro_cap; its LCP is the count of equal leading bytes over the
+// 16 payload dwords (64 bytes), capped by the fence room and the segment
+// end, and it must reach min_match_len_for_ro(ro).  Score lcp*1024 +
+// (1023-j); a strictly greater score wins, so ties keep the more recent
+// candidate.  K2 (masked) adds, from match_pallas.py:144-175: a candidate
+// must carry mask 1 (it was an item start of the previous parse, and rank_s
+// holds masked prefix counts); for j > near_depth (when near_depth > 0) the
+// query itself must carry mask 1; and with a two-tier cap (ro_cap_near <
+// ro_cap) a candidate at ro >= ro_cap_near scores lcp alone, below every near
+// one.  K1 has no mask, no near gating and one tier.
 //
-// K2 (masked) adds, from match_pallas.py:144-175: a candidate must carry mask
-// 1 (it was an item start of the previous parse, and rank_s holds masked
-// prefix counts); for j > near_depth (when near_depth > 0) the query itself
-// must carry mask 1; and with a two-tier cap (ro_cap_near < ro_cap) a
-// candidate at ro >= ro_cap_near scores lcp alone, below every near one.
-// K1 is the same loop with no mask, near_depth 0 and ro_cap_near = ro_cap.
+// Bound on the H100: device-memory bytes plus the walked pairs.  Each slot
+// reads its key, rank, position (and mask byte) and writes 3 words; each
+// compared pair reads the dwords up to the first that differs.  The work is
+// the (query, candidate) pairs walked.  Walking every shift with one thread
+// per slot, a long same-key group makes each K2 lane load ~depth keys and
+// mask bytes, nine in ten of them at mask-0 slots that K2 may not take, and
+// the warp waits for its longest lane.
 //
-// Bound on the H100: device-memory bytes.  Each slot reads its own 19 words
-// once (and its mask byte) and, per live candidate, the candidate's key,
-// mask and rank plus as many payload dwords as the LCP needs (usually one or
-// two); the arithmetic is a few integer operations per byte read.  Design:
-// one thread per sorted slot, on a (slot tiles, B) grid.  Neighbouring
-// threads read neighbouring slots for the same j, so every candidate load is
-// coalesced across the warp and mostly served from L1/L2 (a warp's 32+depth
-// slots span a few lines).  Because keys are sorted, the first candidate
-// with another key ends the loop: most slots stop after a handful of
-// candidates instead of `depth`.  Long same-key groups (binary runs,
-// frequent 4-grams) do walk all 384 shifts of K2; there the mask byte is
-// tested before any dword is loaded, and a query without mask 1 stops at
-// near_depth instead of testing candidates it may not take.  The slots
-// before slot 0 are the TPU kernel's fill (key -1, never equal to a real
-// key, which is >= 0): the loop simply stops at j = i.  The inclusive
-// j <= depth bound matters at depth 384, a multiple of 128, where the TPU
-// kernel once dropped the last shift (match_pallas.py:196-199).
+// K1 (depth 8 or 32, every slot a candidate) keeps that per-slot walk: one
+// thread per sorted slot on a (slot tiles, B) grid, its 16 dwords in
+// registers; neighbouring threads read neighbouring candidates for the same
+// j, so the loads coalesce.  The tiled walk below measured slower for K1.
+// It stops exactly as K2 does once a best's LCP equals min(64, cap): every
+// later candidate has a larger j and no larger LCP (K1 has one tier).
+//
+// K2: one CTA per tile of kTile = 1024 consecutive sorted slots of one row
+// (256 threads, 4 slots each, a warp on 32 consecutive slots).
+//  1. The CTA stages the window [t0 - depth, t0 + kTile) of keys, ranks and
+//     mask bytes into shared memory with cp.async (the depth-slot halo
+//     costs 38% more of those reads at depth 384).  Slots before 0 and past
+//     the row end are never candidates, the TPU kernel's key -1 fill.
+//  2. Warp ballots, __popc and a block prefix over the 8 warps' counts
+//     compact the window's mask-1 slots into a list of (window index, key,
+//     rank) in slot order, and give each slot the count of them before it.
+//  3. Each query walks that list newest first while the candidate lies
+//     within its jmax shifts, and stops at the first candidate with another
+//     key: keys are sorted, so every earlier one differs too.  ro < ro_cap
+//     stays a per-candidate test (no monotonicity of rank_s is assumed).
+//  4. The walk stops once nothing can win: a near-tier best whose LCP equals
+//     min(64, cap) beats every later candidate (larger j, no larger LCP;
+//     a far-tier score is the LCP alone, under 1024).  A far candidate is
+//     skipped unseen once the best score reaches min(64, cap), and a query
+//     whose cap is below every length gate walks nothing.
+//  5. A pair's dwords are read, first dword first, through the read-only
+//     path only after it passes the key, mask, offset and length gates, and
+//     only up to ceil(min(64, cap) / 4) of them; the winner's position is
+//     read once at the end.  These loads set the pace, but staging the
+//     window's leading dword rows in shared memory measured slower: it
+//     reads every window slot's rows, while a slot compares few pairs.
+// The inclusive j <= depth bound matters at depth 384, a multiple of 128,
+// where the TPU kernel once dropped the last shift (match_pallas.py:196-199).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kNDw = 16;  // payload dwords per slot (LCP0 / 4)
+constexpr int kNDw = 16;       // payload dwords per slot (LCP0 / 4)
+constexpr int kTile = 1024;    // query slots per CTA
+constexpr int kThreads = 256;  // threads per CTA
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 
-template <bool kMasked>
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Bytes of mask staging for a window of w slots: whole 4-byte words from the
+// aligned-down start, one spare.
+__host__ __device__ constexpr int mask_words(int w) { return (w + 7) / 4 + 1; }
+
+__host__ __device__ constexpr size_t smem_bytes(int w) {
+  return 4 * static_cast<size_t>(4 * w + mask_words(w) + kWarps) +
+         2 * static_cast<size_t>(2 * w);
+}
+
+// Equal leading bytes of slots i and c over their dwords, capped at maxlcp
+// (<= 64): only the first ceil(maxlcp / 4) dwords can matter.
+__device__ __forceinline__ int pair_lcp(const int* __restrict__ dw_r, int n,
+                                        int i, int c, int maxlcp) {
+  const int ndw = (maxlcp + 3) >> 2;
+  for (int t = 0; t < ndw; ++t) {
+    const size_t o = static_cast<size_t>(t) * n;
+    const unsigned x = static_cast<unsigned>(__ldg(dw_r + o + i)) ^
+                       static_cast<unsigned>(__ldg(dw_r + o + c));
+    if (x != 0u)
+      return min(4 * t + ((__ffs(static_cast<int>(x)) - 1) >> 3), maxlcp);
+  }
+  return maxlcp;
+}
+
+// K1: one thread per sorted slot, walking every shift with its 16 dwords
+// in registers (faster for K1 than the tiled walk below).
 __global__ void match_depth_kernel(
     const int* __restrict__ msk, const int* __restrict__ msp,
     const int* __restrict__ rank_s, const int* __restrict__ dw_s,
-    const unsigned char* __restrict__ mask_s, const int* __restrict__ end,
-    int* __restrict__ best_q, int* __restrict__ best_ro,
-    int* __restrict__ best_len, int n, int depth, int ro_cap, int near_depth,
-    int ro_cap_near, int fence, int pad_front, int min_len, int gate,
-    int far1, int far2) {
+    const int* __restrict__ end, int* __restrict__ best_q,
+    int* __restrict__ best_ro, int* __restrict__ best_len, int n, int depth,
+    int ro_cap, int fence, int pad_front, int min_len, int gate, int far1,
+    int far2) {
   const int b = blockIdx.y;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -63,7 +127,6 @@ __global__ void match_depth_kernel(
   const int* pos_r = msp + row;
   const int* rank_r = rank_s + row;
   const int* dw_r = dw_s + static_cast<size_t>(b) * kNDw * n;
-  const unsigned char* mask_r = kMasked ? mask_s + row : nullptr;
 
   const int key = key_r[i];
   const int p = pos_r[i];
@@ -75,12 +138,10 @@ __global__ void match_depth_kernel(
   for (int t = 0; t < kNDw; ++t) dw[t] = static_cast<unsigned>(dw_r[t * n + i]);
 
   int bs = 0, bq = -1, bro = 0, blen = 0;
-  int jmax = min(depth, i);
-  if (kMasked && near_depth > 0 && mask_r[i] == 0) jmax = min(jmax, near_depth);
+  const int jmax = min(depth, i);
   for (int j = 1; j <= jmax; ++j) {
     const int c = i - j;
     if (key_r[c] != key) break;  // sorted: every earlier slot differs too
-    if (kMasked && mask_r[c] == 0) continue;
     const int ro = rank - 1 - rank_r[c];
     if (ro >= ro_cap) continue;
     int lcp = 4 * kNDw;
@@ -95,13 +156,13 @@ __global__ void match_depth_kernel(
     lcp = min(lcp, cap);
     const int need = min_len + gate * (ro >= far1) + gate * (ro >= far2);
     if (lcp < need) continue;
-    int score = lcp * 1024 + (1023 - j);
-    if (kMasked && ro >= ro_cap_near) score = lcp;  // far tier
+    const int score = lcp * 1024 + (1023 - j);
     if (score > bs) {
       bs = score;
       bq = pos_r[c];
       bro = ro;
       blen = lcp;
+      if (lcp == min(4 * kNDw, cap)) break;  // every later score is lower
     }
   }
   best_q[row + i] = bq;
@@ -109,41 +170,158 @@ __global__ void match_depth_kernel(
   best_len[row + i] = blen;
 }
 
-template <bool kMasked>
-int launch(const int* msk, const int* msp, const int* rank_s, const int* dw_s,
-           const unsigned char* mask_s, const int* end, int* best_q,
-           int* best_ro, int* best_len, int B, int n, int depth, int ro_cap,
-           int near_depth, int ro_cap_near, int fence, int pad_front,
-           int min_len, int gate, int far1, int far2, int n_dw,
-           void* stream) {
-  if (n_dw != kNDw) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 256;
-  dim3 grid((n + threads - 1) / threads, B);
-  match_depth_kernel<kMasked>
-      <<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-          msk, msp, rank_s, dw_s, mask_s, end, best_q, best_ro, best_len, n,
-          depth, ro_cap, near_depth, ro_cap_near, fence, pad_front, min_len,
-          gate, far1, far2);
-  return static_cast<int>(cudaGetLastError());
+// K2: the tiled walk over the compacted mask-1 list (see the note above).
+__global__ void __launch_bounds__(kThreads) match_depth_masked_kernel(
+    const int* __restrict__ msk, const int* __restrict__ msp,
+    const int* __restrict__ rank_s, const int* __restrict__ dw_s,
+    const unsigned char* __restrict__ mask_s, const int* __restrict__ end,
+    int* __restrict__ best_q, int* __restrict__ best_ro,
+    int* __restrict__ best_len, int n, int depth, int ro_cap, int near_depth,
+    int ro_cap_near, int fence, int pad_front, int min_len, int gate,
+    int far1, int far2) {
+  extern __shared__ int smem[];
+  const int w_len = kTile + depth;
+  int* s_key = smem;               // window keys
+  int* s_rank = s_key + w_len;     // window ranks
+  int* l_key = s_rank + w_len;     // candidate list: keys
+  int* l_rank = l_key + w_len;     //                 ranks
+  unsigned char* s_maskb = reinterpret_cast<unsigned char*>(l_rank + w_len);
+  int* s_tot = l_rank + w_len + mask_words(w_len);  // per-warp counts
+  short* l_idx = reinterpret_cast<short*>(s_tot + kWarps);  // window index
+  short* s_pref = l_idx + w_len;  // candidates before each window slot
+
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * kTile;
+  const int w0 = t0 - depth;  // slot of window index 0
+  const int lo = max(w0, 0), hi = min(t0 + kTile, n);
+  const size_t row = static_cast<size_t>(b) * n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // 1. stage the window
+  for (int c = lo + static_cast<int>(threadIdx.x); c < hi; c += kThreads) {
+    cp_async4(s_key + (c - w0), msk + row + c, 4);
+    cp_async4(s_rank + (c - w0), rank_s + row + c, 4);
+  }
+  // the mask bytes as whole words from the aligned-down start
+  const size_t m0 = (row + lo) & ~static_cast<size_t>(3);  // s_maskb[0]
+  const size_t m_end = row + hi;
+  for (size_t g = m0 + 4 * threadIdx.x; g < m_end; g += 4 * kThreads) {
+    const int left = static_cast<int>(m_end - g);  // zero-fill past hi
+    cp_async4(s_maskb + (g - m0), mask_s + g, left < 4 ? left : 4);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 2. compact the mask-1 slots: one contiguous run of the window a warp
+  const int per_warp = (w_len + kWarps * 32 - 1) / (kWarps * 32) * 32;
+  const int wb = warp * per_warp;
+  auto is_cand = [&](int w) -> bool {
+    const int c = w0 + w;
+    return w < w_len && c >= lo && c < hi && s_maskb[row + c - m0] != 0;
+  };
+  int count = 0;
+  for (int w = wb + lane; w < wb + per_warp; w += 32)
+    count += __popc(__ballot_sync(kFull, is_cand(w)));
+  if (lane == 0) s_tot[warp] = count;
+  __syncthreads();
+  int pos = 0;
+  for (int k = 0; k < warp; ++k) pos += s_tot[k];
+  for (int w = wb + lane; w < wb + per_warp; w += 32) {
+    const bool f = is_cand(w);
+    const unsigned bal = __ballot_sync(kFull, f);
+    const int at = pos + __popc(bal & ((1u << lane) - 1u));
+    if (w < w_len) s_pref[w] = static_cast<short>(at);
+    if (f) {
+      l_idx[at] = static_cast<short>(w);
+      l_key[at] = s_key[w];
+      l_rank[at] = s_rank[w];
+    }
+    pos += __popc(bal);
+  }
+  __syncthreads();
+
+  // 3-5. each thread's queries walk the list newest first
+  const int* dw_r = dw_s + static_cast<size_t>(b) * kNDw * n;
+  const int e = end[b];
+  const int need_min = min(min_len, min(min_len + gate, min_len + 2 * gate));
+  for (int k = 0; k < kTile / kThreads; ++k) {
+    const int i = t0 + k * kThreads + static_cast<int>(threadIdx.x);
+    if (i >= n) break;
+    const int q = i - w0;  // the query's window index
+    const int key = s_key[q], rank = s_rank[q];
+    const int p = msp[row + i];
+    const int maxlcp =
+        min(4 * kNDw, min(fence - ((p - pad_front) & (fence - 1)), e - p));
+    int jmax = min(depth, i);
+    if (near_depth > 0 && s_maskb[row + i - m0] == 0)
+      jmax = min(jmax, near_depth);
+    const int w_min = q - jmax;
+    int bs = 0, bc = -1, bro = 0, blen = 0;
+    if (maxlcp >= need_min) {
+      for (int a = s_pref[q] - 1; a >= 0; --a) {
+        const int cw = l_idx[a];
+        if (cw < w_min || l_key[a] != key) break;
+        const int ro = rank - 1 - l_rank[a];
+        if (ro >= ro_cap) continue;
+        const bool far = ro >= ro_cap_near;
+        if (far && bs >= maxlcp) continue;  // no far score can beat bs
+        const int need = min_len + gate * (ro >= far1) + gate * (ro >= far2);
+        if (maxlcp < need) continue;
+        const int lcp = pair_lcp(dw_r, n, i, w0 + cw, maxlcp);
+        if (lcp < need) continue;
+        const int score = far ? lcp : lcp * 1024 + (1023 - (q - cw));
+        if (score > bs) {
+          bs = score;
+          bc = w0 + cw;
+          bro = ro;
+          blen = lcp;
+          if (!far && lcp == maxlcp) break;  // every later score is lower
+        }
+      }
+    }
+    best_q[row + i] = bc >= 0 ? msp[row + bc] : -1;
+    best_ro[row + i] = bro;
+    best_len[row + i] = blen;
+  }
 }
 
 }  // namespace
 
-// K1 when mask_s is null (near_depth and ro_cap_near are then ignored), K2
-// otherwise.
-extern "C" int otz_match_depth(
+// depth < 1024 keeps the recency term below one LCP step and K2's window
+// (at most 2047 slots, 43 KB of shared memory) inside int16 indices.
+extern "C" int otz_match_depth(const int* msk, const int* msp,
+                               const int* rank_s, const int* dw_s,
+                               const int* end, int* best_q, int* best_ro,
+                               int* best_len, int B, int n, int depth,
+                               int ro_cap, int fence, int pad_front,
+                               int min_len, int gate, int far1, int far2,
+                               int n_dw, void* stream) {
+  if (n_dw != kNDw || depth < 1 || depth > 1023 || n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 256;
+  match_depth_kernel<<<dim3((n + threads - 1) / threads, B), threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      msk, msp, rank_s, dw_s, end, best_q, best_ro, best_len, n, depth,
+      ro_cap, fence, pad_front, min_len, gate, far1, far2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mask_s must be 4-byte aligned: the window's mask bytes are staged in
+// 4-byte words (the wrapper checks).
+extern "C" int otz_match_depth_masked(
     const int* msk, const int* msp, const int* rank_s, const int* dw_s,
     const unsigned char* mask_s, const int* end, int* best_q, int* best_ro,
     int* best_len, int B, int n, int depth, int ro_cap, int near_depth,
     int ro_cap_near, int fence, int pad_front, int min_len, int gate,
     int far1, int far2, int n_dw, void* stream) {
-  if (mask_s == nullptr)
-    return launch<false>(msk, msp, rank_s, dw_s, nullptr, end, best_q,
-                         best_ro, best_len, B, n, depth, ro_cap, 0, ro_cap,
-                         fence, pad_front, min_len, gate, far1, far2, n_dw,
-                         stream);
-  return launch<true>(msk, msp, rank_s, dw_s, mask_s, end, best_q, best_ro,
-                      best_len, B, n, depth, ro_cap, near_depth, ro_cap_near,
-                      fence, pad_front, min_len, gate, far1, far2, n_dw,
-                      stream);
+  if (n_dw != kNDw || depth < 1 || depth > 1023 || n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int w_len = kTile + depth;
+  match_depth_masked_kernel<<<dim3((n + kTile - 1) / kTile, B), kThreads,
+                              smem_bytes(w_len),
+                              static_cast<cudaStream_t>(stream)>>>(
+      msk, msp, rank_s, dw_s, mask_s, end, best_q, best_ro, best_len, n,
+      depth, ro_cap, near_depth, ro_cap_near, fence, pad_front, min_len,
+      gate, far1, far2);
+  return static_cast<int>(cudaGetLastError());
 }

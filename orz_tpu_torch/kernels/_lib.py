@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels (``orz_tpu_torch/csrc/*.cu``).
 
-Each source compiles with its own nvcc process, all started together,
-and the objects link into ONE shared library with a plain C interface,
-keyed by a hash of the sources, under the repository's ``build/``
-directory, at first use.  It is loaded
-with ctypes: every pointer and the stream are ``c_void_p``, and every entry
-point returns ``cudaGetLastError()`` after its launch, which ``check``
-turns into an exception.
+Each source compiles with its own nvcc process, all started together
+(``-Xptxas=-v``: ``build_log`` keeps each kernel's registers and shared
+memory), and the objects link into ONE shared library with a plain C
+interface, keyed by a hash of the sources, under the repository's
+``build/`` directory, at first use.  It is loaded with ctypes: every
+pointer and the stream are ``c_void_p``, and every entry point returns
+``cudaGetLastError()`` after its launch, which ``check`` turns into an
+exception.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
@@ -28,7 +31,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # entry point -> argtypes (pointers, ints, then the stream)
 _SIGNATURES = {
-    "otz_match_depth": [_P] * 9 + [_I] * 13 + [_P],
+    "otz_match_depth": [_P] * 8 + [_I] * 11 + [_P],
+    "otz_match_depth_masked": [_P] * 9 + [_I] * 13 + [_P],
     "otz_fence_walk": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "otz_symrank": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "otz_windowed_gather": [_P, _P, _P, _P, _I, _I, _P],
@@ -36,6 +40,7 @@ _SIGNATURES = {
 
 _lib = None
 _lock = threading.Lock()
+build_log: list[str] = []  # nvcc's output per source (ptxas -v), last build
 
 
 def sources() -> list[str]:
@@ -73,13 +78,15 @@ def build() -> str:
         objs = [os.path.join(_BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
                 for s in srcs]
         procs = [subprocess.Popen(
-            [nvcc, "-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler",
-             "-fPIC", "-c", src, "-o", obj],
+            [nvcc, "-gencode", ARCH, "-std=c++17", "-O3", "-Xptxas=-v",
+             "-Xcompiler", "-fPIC", "-c", src, "-o", obj],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src, obj in zip(srcs, objs)]
         failed = []
+        build_log.clear()
         for src, proc in zip(srcs, procs):
             out, _ = proc.communicate()
+            build_log.append(f"{os.path.basename(src)}:\n{out}")
             if proc.returncode != 0:
                 failed.append(f"{os.path.basename(src)}: {out}")
         tmp = f"{so_path}.tmp.{os.getpid()}"
@@ -98,8 +105,12 @@ def build() -> str:
 
 
 def library():
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call; no lock once
+    loaded)."""
     global _lib
+    lib = _lib
+    if lib is not None:
+        return lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
@@ -116,19 +127,15 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-def stream_ptr(device) -> int:
-    import torch
-
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def require_cuda(name: str, *tensors) -> None:
+def cuda_stream(name: str, *tensors) -> int:
     """Raise unless every tensor is a contiguous CUDA tensor on one device
-    (the kernels take raw pointers and flat strides)."""
-    dev = tensors[0].device
+    (the kernels take raw pointers and flat strides); return the raw
+    pointer of that device's current stream, for the launch."""
+    dev = tensors[0].get_device()  # -1 on the CPU
     for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
+        if dev < 0 or t.get_device() != dev:
             raise ValueError(f"{name}: all tensors must be on one CUDA "
                              f"device, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+    return torch.cuda.current_stream(dev).cuda_stream

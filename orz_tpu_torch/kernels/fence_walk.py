@@ -54,12 +54,12 @@ def launch_walk(name: str, nxt: torch.Tensor, seg_lens: torch.Tensor):
     launches."""
     bsz, n = nxt.shape
     end = (PAD_FRONT + seg_lens).int()
-    _lib.require_cuda(name, nxt, end)
+    stream = _lib.cuda_stream(name, nxt, end)
     mask = torch.zeros((bsz, n), dtype=torch.bool, device=nxt.device)
     n_blocks = -(-(n - PAD_FRONT) // FENCE)
     rc = _lib.library().otz_fence_walk(
         nxt.data_ptr(), end.data_ptr(), mask.data_ptr(), bsz, n, n_blocks,
-        FENCE, PAD_FRONT, _lib.stream_ptr(nxt.device),
+        FENCE, PAD_FRONT, stream,
     )
     _lib.check(rc, "otz_fence_walk")
     return mask

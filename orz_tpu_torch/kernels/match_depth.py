@@ -4,7 +4,8 @@ Replaces ``orz_tpu/ops/match_pallas.py`` ``match_depth_pallas`` with
 ``mask_s=None``.  Inputs are ``(B, n)`` int32 arrays sorted by (match key,
 position) and ``dw_s`` ``(B, N_DW, n)`` int32 (uint32 bit patterns);
 outputs ``(best_q, best_ro, best_len)`` ``(B, n)`` int32 in sorted order.
-``match_depth_plain`` and ``launch`` serve K2 (``match_depth_masked``) too.
+``match_depth_plain`` and ``check_inputs`` serve K2
+(``match_depth_masked``) too.
 """
 
 from __future__ import annotations
@@ -112,35 +113,21 @@ def check_inputs(name: str, msk, msp, rank_s, dw_s, end, depth: int) -> None:
         raise ValueError(f"{name}: depth {depth} outside [1, 1023]")
 
 
-def launch(name, msk, msp, rank_s, dw_s, end, depth: int, ro_cap: int,
-           mask_s=None, near_depth: int = 0, ro_cap_near: int | None = None):
-    """One launch of ``csrc/match_depth.cu`` on CUDA tensors: K2 when
-    ``mask_s`` is given, else K1.  The callers count their launches."""
-    masks = () if mask_s is None else (mask_s,)
-    _lib.require_cuda(name, msk, msp, rank_s, dw_s, end, *masks)
-    bsz, n = msk.shape
-    best_q = torch.empty_like(msk)
-    best_ro = torch.empty_like(msk)
-    best_len = torch.empty_like(msk)
-    near_cap = ro_cap if ro_cap_near is None else min(ro_cap_near, ro_cap)
-    rc = _lib.library().otz_match_depth(
-        msk.data_ptr(), msp.data_ptr(), rank_s.data_ptr(), dw_s.data_ptr(),
-        None if mask_s is None else mask_s.data_ptr(), end.data_ptr(),
-        best_q.data_ptr(), best_ro.data_ptr(), best_len.data_ptr(), bsz, n,
-        depth, ro_cap, near_depth, near_cap, FENCE, PAD_FRONT,
-        LZ_MATCH_MIN_LEN, _FAR_GATE, FAR_RO_1, FAR_RO_2, N_DW,
-        _lib.stream_ptr(msk.device),
-    )
-    _lib.check(rc, name)
-    return best_q, best_ro, best_len
-
-
 def match_depth(msk, msp, rank_s, dw_s, end, depth: int, ro_cap: int = RING):
     """K1 on CUDA tensors; the plain version on CPU tensors."""
     check_inputs("match_depth", msk, msp, rank_s, dw_s, end, depth)
     if msk.device.type == "cpu":
         return match_depth_plain(msk, msp, rank_s, dw_s, end, depth, ro_cap)
-    out = launch("match_depth", msk, msp, rank_s, dw_s, end, depth, ro_cap)
+    stream = _lib.cuda_stream("match_depth", msk, msp, rank_s, dw_s, end)
+    bsz, n = msk.shape
+    out = tuple(torch.empty_like(msk) for _ in range(3))
+    rc = _lib.library().otz_match_depth(
+        msk.data_ptr(), msp.data_ptr(), rank_s.data_ptr(), dw_s.data_ptr(),
+        end.data_ptr(), *(t.data_ptr() for t in out), bsz, n, depth, ro_cap,
+        FENCE, PAD_FRONT, LZ_MATCH_MIN_LEN, _FAR_GATE, FAR_RO_1, FAR_RO_2,
+        N_DW, stream,
+    )
+    _lib.check(rc, "match_depth")
     global launches
     launches += 1
     return out

@@ -92,11 +92,12 @@ def symrank(symbol, sr_unlikely, sr_ctx, n_items, init_perm):
     cnt = cnt.int().contiguous()
     perm = init_perm.int().contiguous()
     coded = torch.zeros((bsz, m), dtype=torch.int32, device=dev)
-    _lib.require_cuda("symrank", packed, item_of, off, cnt, perm, coded)
+    stream = _lib.cuda_stream("symrank", packed, item_of, off, cnt, perm,
+                              coded)
     rc = _lib.library().otz_symrank(
         packed.data_ptr(), item_of.data_ptr(), off.data_ptr(),
         cnt.data_ptr(), perm.data_ptr(), coded.data_ptr(), bsz, m, C, S,
-        S_PAD, _lib.stream_ptr(dev),
+        S_PAD, stream,
     )
     _lib.check(rc, "otz_symrank")
     global launches

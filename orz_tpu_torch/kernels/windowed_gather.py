@@ -60,11 +60,11 @@ def windowed_gather(src: torch.Tensor, idx: torch.Tensor,
     check_inputs(src, idx, base)
     if src.device.type == "cpu":
         return windowed_gather_plain(src, idx, base)
-    _lib.require_cuda("windowed_gather", src, idx, base)
+    stream = _lib.cuda_stream("windowed_gather", src, idx, base)
     out = torch.empty_like(idx)
     rc = _lib.library().otz_windowed_gather(
         src.data_ptr(), idx.data_ptr(), base.data_ptr(), out.data_ptr(),
-        src.shape[0], idx.shape[0] // BLK, _lib.stream_ptr(src.device))
+        src.shape[0], idx.shape[0] // BLK, stream)
     _lib.check(rc, "windowed_gather")
     global launches
     launches += 1

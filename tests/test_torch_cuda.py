@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from orz_tpu_torch.device.host import _bucket, pad_batch
+from orz_tpu_torch.device.host import S, _bucket, pad_batch
 from orz_tpu_torch.kernels import (
     fence_walk,
     match_depth,
@@ -23,8 +23,17 @@ from orz_tpu_torch.kernels import (
 )
 from orz_tpu_torch.ops import batched as ob
 from orz_tpu_torch.spec import OTZ2_RO_CAP, PAD_FRONT, RING
+from torch_walk_inputs import WALK_VARIANTS, walk_inputs, walk_plain
 
 CAP = 1 << 18
+
+def walk(args, depth: int, variant: str):
+    """K1 or K2 (``WALK_VARIANTS``) through its wrapper."""
+    ro_cap, near, near_cap = WALK_VARIANTS[variant]
+    if variant == "k1":
+        return match_depth.match_depth(*args[:5], depth, ro_cap)
+    return match_depth_masked.match_depth_masked(*args, depth, ro_cap, near,
+                                                 near_cap)
 
 
 def _data(seed: int, n: int) -> bytes:
@@ -108,6 +117,46 @@ def test_match_depth_masked_kernel_matches_plain(batch, variant):
     _equal(got, match_depth.match_depth_plain(*args[:5], 384, caps[0],
                                               args[5], *caps[1:]))
     assert int((got[0] >= 0).sum()) > 10000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,mask", [
+    ("k1", "random"), ("iteration", "zeros"), ("iteration", "ones"),
+    ("iteration", "random"), ("two_tier", "random")])
+def test_match_depth_tiles_match_plain(cuda, variant, mask):
+    """K1 and K2 at depth 384 on rows of 3077 slots (not a multiple of
+    K2's 1024-slot tile): row 0 one key over three tiles, row 1 small
+    groups; masks all 0, all 1 and random."""
+    n = 3077
+    rng = np.random.default_rng(5)
+    small = list(rng.integers(1, 90, 60))
+    args = tuple(t.to(cuda) for t in walk_inputs(3, n, [[n - 50], small],
+                                                 mask))
+    got = walk(args, 384, variant)
+    torch.cuda.synchronize()
+    _equal(got, walk_plain(args, 384, variant))
+    if variant == "k1" or mask != "zeros":
+        assert int((got[0] >= 0).sum()) > 500
+
+
+@pytest.mark.cuda
+def test_symrank_one_context_matches_plain(cuda):
+    """K5 with every item in one context, m = 20013 (not a multiple of
+    32), one row shorter than m."""
+    rng = np.random.default_rng(11)
+    bsz, m = 2, 20013
+    sym = np.minimum(rng.zipf(1.3, (bsz, m)) - 1, S - 1)
+    args = (torch.from_numpy(sym.astype(np.int32)),
+            torch.from_numpy(rng.integers(0, 256, (bsz, m), dtype=np.int32)),
+            torch.full((bsz, m), 300, dtype=torch.int32),
+            torch.tensor([m - 5, m], dtype=torch.int32),
+            torch.from_numpy(np.stack([rng.permutation(S) for _ in
+                                       range(bsz)]).astype(np.int32)))
+    before = symrank.launches
+    got = symrank.symrank(*(t.to(cuda) for t in args))
+    torch.cuda.synchronize()
+    assert symrank.launches == before + 1
+    assert torch.equal(got.cpu(), symrank.symrank_plain(*args))
 
 
 @pytest.mark.cuda

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from orz_tpu_torch.device.host import N_DW, _bucket, pad_batch
+from orz_tpu_torch.device.host import N_DW, S, _bucket, pad_batch
 from orz_tpu_torch.kernels import (
     fence_walk,
     match_depth,
@@ -26,8 +26,18 @@ from orz_tpu_torch.kernels import (
     walk_mask,
 )
 from orz_tpu_torch.ops import batched as ob
-from orz_tpu_torch.spec import OTZ2_RO_CAP, PAD_FRONT, RING
+from orz_tpu_torch.spec import (
+    FAR_RO_1,
+    FAR_RO_2,
+    FENCE,
+    LZ_MATCH_MIN_LEN,
+    OTZ2_RO_CAP,
+    PAD_FRONT,
+    RING,
+    _FAR_GATE,
+)
 from tests.conftest import make_binary_like, make_text_like
+from torch_walk_inputs import WALK_VARIANTS, walk_inputs, walk_plain
 
 torch.set_num_threads(2)
 
@@ -227,10 +237,21 @@ def test_huffman_rows_match_host_package_merge():
                                       [code for code, _ in enc])
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "depth"])
+@pytest.mark.parametrize("bad", ["dtype", "shape", "depth", "mask_align"])
 def test_match_depth_rejects_bad_input(candidates, bad):
+    """Bad dtypes, shapes and depths; and K2's mask_s at a storage offset
+    that is not a multiple of 4 (the kernel stages it in 4-byte words)."""
     msk, msp, rank_s, dw_s, end = candidates
     depth = 8
+    if bad == "mask_align":
+        bsz, n = msk.shape
+        mask_s = torch.ones(bsz * n + 1, dtype=torch.bool)[1:].view(bsz, n)
+        assert mask_s.is_contiguous() and mask_s.data_ptr() % 4
+        with pytest.raises(ValueError, match="aligned"):
+            match_depth_masked.match_depth_masked(msk, msp, rank_s, dw_s,
+                                                  end, mask_s, depth,
+                                                  OTZ2_RO_CAP)
+        return
     if bad == "dtype":
         msk = msk.long()
     elif bad == "shape":
@@ -239,3 +260,112 @@ def test_match_depth_rejects_bad_input(candidates, bad):
         depth = 1024
     with pytest.raises(ValueError):
         match_depth.match_depth(msk, msp, rank_s, dw_s, end, depth)
+
+
+def _walk_model(args, depth: int, variant: str, tile: int):
+    """K2's walk in ``csrc/match_depth.cu``, in Python: per tile of
+    ``tile`` slots, the window's mask-1 slots compacted in slot order; each
+    query walks them newest first within its jmax shifts, stops at the
+    first other key, skips far candidates once the best score reaches
+    min(64, cap), and stops at a near best whose LCP is min(64, cap).
+    Returns the outputs and the number of such stops."""
+    ro_cap, near, near_cap = WALK_VARIANTS[variant]
+    near_cap = ro_cap if near_cap is None else min(near_cap, ro_cap)
+    msk, msp, rank_s, dw_s, end, mask_s = (t.tolist() for t in args)
+    dw_s = [list(zip(*row)) for row in dw_s]  # (B, n) tuples of N_DW
+    need_min = min(LZ_MATCH_MIN_LEN, LZ_MATCH_MIN_LEN + _FAR_GATE,
+                   LZ_MATCH_MIN_LEN + 2 * _FAR_GATE)
+    bsz, n = len(msk), len(msk[0])
+    out = [[[-1] * n for _ in range(bsz)], [[0] * n for _ in range(bsz)],
+           [[0] * n for _ in range(bsz)]]
+    stops = 0
+    for b in range(bsz):
+        key, pos, rank, dw = msk[b], msp[b], rank_s[b], dw_s[b]
+        for t0 in range(0, n, tile):
+            lo, hi = max(t0 - depth, 0), min(t0 + tile, n)
+            cand = [c for c in range(lo, hi) if mask_s[b][c]]
+            at = 0  # candidates before the query
+            for i in range(t0, hi):
+                while at < len(cand) and cand[at] < i:
+                    at += 1
+                p = pos[i]
+                maxlcp = min(4 * N_DW, FENCE - ((p - PAD_FRONT) & (FENCE - 1)),
+                             end[b] - p)
+                jmax = min(depth, i)
+                if near and not mask_s[b][i]:
+                    jmax = min(jmax, near)
+                bs, bc, bro, blen = 0, -1, 0, 0
+                for c in (reversed(cand[:at]) if maxlcp >= need_min else ()):
+                    if c < i - jmax or key[c] != key[i]:
+                        break
+                    ro = rank[i] - 1 - rank[c]
+                    if ro >= ro_cap:
+                        continue
+                    far = ro >= near_cap
+                    if far and bs >= maxlcp:
+                        continue
+                    need = LZ_MATCH_MIN_LEN + _FAR_GATE * (ro >= FAR_RO_1) \
+                        + _FAR_GATE * (ro >= FAR_RO_2)
+                    if maxlcp < need:
+                        continue
+                    lcp = maxlcp
+                    for t in range((maxlcp + 3) // 4):
+                        x = (dw[i][t] ^ dw[c][t]) & 0xFFFFFFFF
+                        if x:
+                            lcp = min(4 * t + ((x & -x).bit_length() - 1) // 8,
+                                      maxlcp)
+                            break
+                    if lcp < need:
+                        continue
+                    score = lcp if far else lcp * 1024 + 1023 - (i - c)
+                    if score > bs:
+                        bs, bc, bro, blen = score, c, ro, lcp
+                        if not far and lcp == maxlcp:
+                            stops += 1
+                            break
+                out[0][b][i] = pos[bc] if bc >= 0 else -1
+                out[1][b][i], out[2][b][i] = bro, blen
+    return tuple(torch.tensor(o, dtype=torch.int32) for o in out), stops
+
+
+@pytest.mark.parametrize("variant,mask", [("iteration", "random"),
+                                          ("two_tier", "random"),
+                                          ("iteration", "ones")])
+def test_match_depth_walk_model_matches_plain(variant, mask):
+    """K2's walk order (tiles of 1024 slots with a 384-slot halo, the
+    compacted mask-1 list, the stop at the first other key, the exact stop
+    at the cap) equals the plain version at depth 384 on rows of 2300
+    slots (not a multiple of the tile): row 0 has a 1200-slot key group
+    across a tile edge, longer than 384, row 1 small groups; with the
+    random mask 70% of the queries carry mask 0 and stop at near_depth;
+    LCPs tie and reach their caps; the two-tier variant takes matches in
+    both tiers."""
+    rng = np.random.default_rng(2)
+    args = walk_inputs(4, 2300, [[5, 1, 1200, 30, 700, 2],
+                                 list(rng.integers(1, 60, 60))], mask)
+    (got, stops) = _walk_model(args, 384, variant, tile=1024)
+    want = walk_plain(args, 384, variant)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    assert stops > 100 and int((got[0] >= 0).sum()) > 1000
+    if variant == "two_tier":  # both tiers took matches
+        near_cap = WALK_VARIANTS[variant][2]
+        assert int((got[1] >= near_cap).sum()) > 20
+        assert int(((got[0] >= 0) & (got[1] < near_cap)).sum()) > 100
+
+
+def test_symrank_step_quotient_is_floor_division():
+    """``csrc/symrank.cu`` step_quotient: (isum * m) >> 34 with m = 2^30 //
+    cnt + 1 equals (isum >> 4) // cnt for every count 1..S+1 and every isum
+    the transform reaches (it starts at 10^6 and gains at most S-1 an item
+    for S+1 items before its first 9/10 decay).  Both sides are
+    nondecreasing in isum and the product never falls below the true
+    quotient, so the first and last isum of every quotient step cover
+    every isum between them."""
+    isum_max = 1000000 + (S + 1) * (S - 1)
+    for cnt in range(1, S + 2):
+        m = (1 << 30) // cnt + 1
+        k = np.arange(isum_max // (16 * cnt) + 1, dtype=np.int64)
+        x = np.concatenate([16 * cnt * k,
+                            np.minimum(16 * cnt * (k + 1) - 1, isum_max)])
+        np.testing.assert_array_equal((x * m) >> 34, (x >> 4) // cnt)
