@@ -18,7 +18,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    clock: K5's is a host loop); each kernel's bound, the least time the
    card could take for the same work.  K1/K2 also print their walked
    pairs (same-key candidates within reach that the kernel's walk visits;
-   K2: mask-1 candidates only) beside the slots and the mask density; K5
+   K2: mask-1 candidates only) beside the slots and the mask density, K1
+   the histogram of its compared pairs by their first differing dword;
+   K3/K4 (one kernel; K4's counts come from it) max_chain, the steps of
+   the busiest FENCE block, and chain_ms, the kernel's device time
+   (profiler) on that block alone, its mask equal to the whole launch's; K5
    its kernel's device time from a torch.profiler trace (the CUDA-event
    time includes the wrapper's sort), max_chain (the largest (segment,
    context) item count) and chain_ms, the kernel's device time on that
@@ -275,15 +279,22 @@ def match_bound(msk, msp, rank_s, dw_s, end, depth: int, ro_cap: int,
     same-key pair that passes the mask gates; a query's position read
     when it compares a pair (its LCP cap); and each slot's dwords read up
     to the first that differs, the deepest over its compared pairs, within
-    the cap.  Operations: 3 (compare the key, subtract the ranks, compare
-    the offset) per same-key pair within the window.  Also returns
+    the cap, for the pairs whose cap reaches their length gate (no other
+    pair can match).  Operations: 3 (compare the key, subtract the ranks,
+    compare the offset) per same-key pair within the window.  Also returns
     ``walked_pairs``: the same-key pairs within each query's reach whose
     candidate the kernel's walk visits (K2: mask 1), the walk's work
-    before its stops at the cap."""
+    before its stops at the cap; and ``dword_hist``: of the pairs that
+    compare dwords (those that pass the offset cap and the gate), the
+    count whose first differing dword is t, for t = 0..15, then the count
+    equal through the cap (every dword that the cap reaches)."""
     import torch
 
     from orz_tpu_torch.device.host import N_DW
-    from orz_tpu_torch.kernels.match_depth import shift_dn
+    from orz_tpu_torch.kernels.match_depth import (
+        min_match_len_for_ro,
+        shift_dn,
+    )
     from orz_tpu_torch.spec import FENCE, PAD_FRONT
 
     bsz, n = msk.shape
@@ -294,6 +305,7 @@ def match_bound(msk, msp, rank_s, dw_s, end, depth: int, ro_cap: int,
     need_pos = torch.zeros_like(msk, dtype=torch.bool)
     n_dw = torch.zeros(bsz * n, dtype=torch.int64, device=msk.device)
     pairs = walked = 0
+    hist = torch.zeros(N_DW + 1, dtype=torch.int64, device=msk.device)
     for j in range(1, min(depth, n - 1) + 1):
         same = torch.zeros_like(need_rank)
         same[:, j:] = msk[:, j:] == msk[:, :-j]
@@ -310,20 +322,24 @@ def match_bound(msk, msp, rank_s, dw_s, end, depth: int, ro_cap: int,
         walked += int(gated.sum())
         need_rank |= gated
         need_rank[:, :-j] |= gated[:, j:]
-        ok = gated & (rank_s - 1 - shift_dn(rank_s, j, 0) < ro_cap)
+        ro = rank_s - 1 - shift_dn(rank_s, j, 0)
+        ok = gated & (ro < ro_cap) & (cap >= min_match_len_for_ro(ro))
         b, i = ok.nonzero(as_tuple=True)
         if b.numel() == 0:
             continue
         need_pos[b, i] = True
         nz = (dw_s[b, :, i] ^ dw_s[b, :, i - j]) != 0
-        t = torch.where(nz.any(dim=1), nz.int().argmax(dim=1) + 1, N_DW)
-        t = torch.minimum(t, cap_dw[b, i]).long()
+        first = torch.where(nz.any(dim=1), nz.int().argmax(dim=1), N_DW)
+        hist += torch.bincount(torch.where(first < cap_dw[b, i], first, N_DW),
+                               minlength=N_DW + 1)
+        t = torch.minimum(first + 1, cap_dw[b, i]).long()
         for slot in (b * n + i, b * n + i - j):
             n_dw.scatter_reduce_(0, slot, t, "amax")
     nbytes = (bsz * n * (4 + 12 + (1 if mask_s is not None else 0))
               + 4 * (int(need_rank.sum()) + int(need_pos.sum())
                      + int(n_dw.sum()) + bsz))
-    return dict(bound(nbytes, 3 * pairs), walked_pairs=walked)
+    return dict(bound(nbytes, 3 * pairs), walked_pairs=walked,
+                dword_hist=hist.tolist())
 
 
 def walk_bound(n_items_total: int, bsz: int, n: int, counts: bool) -> dict:
@@ -331,6 +347,41 @@ def walk_bound(n_items_total: int, bsz: int, n: int, counts: bool) -> dict:
     (B, n) byte mask (K4 also the B counts); 3 operations per step."""
     return bound(4 * n_items_total + bsz * n + (4 * bsz if counts else 0)
                  + 4 * bsz, 3 * n_items_total)
+
+
+def walk_chain(nxt, lens, mask) -> dict:
+    """K3/K4's longest chain: max_chain, the steps (item starts) of the
+    busiest block of this launch's `mask`, and chain_ms, the walk kernel's
+    device time (profiler) on that block alone, placed as block 0 of a
+    one-segment row; its mask must equal `mask` on that block."""
+    import torch
+    import torch.nn.functional as F
+
+    from orz_tpu_torch.kernels import walk_mask
+    from orz_tpu_torch.spec import FENCE, PAD_FRONT
+
+    bsz, n = mask.shape
+    n_blocks = -(-(n - PAD_FRONT) // FENCE)
+    per_block = F.pad(mask[:, PAD_FRONT:].int(),
+                      (0, n_blocks * FENCE - (n - PAD_FRONT))
+                      ).view(bsz, n_blocks, FENCE).sum(dim=2)
+    b, k = divmod(int(per_block.argmax()), n_blocks)
+    base = PAD_FRONT + k * FENCE
+    width = min(FENCE, n - base)
+    one = torch.zeros((1, PAD_FRONT + FENCE), dtype=torch.int32,
+                      device=nxt.device)
+    one[0, PAD_FRONT:PAD_FRONT + width] = nxt[b, base:base + width] - (
+        base - PAD_FRONT)
+    one_len = (lens[b:b + 1] + PAD_FRONT - base).clamp(0, width).int()
+    got, _ = walk_mask.walk_mask(one, one_len)
+    require_equal("the walk on the busiest block alone",
+                  got[0, PAD_FRONT:PAD_FRONT + width],
+                  mask[b, base:base + width])
+    chain_ms = device_ms(lambda: walk_mask.walk_mask(one, one_len), 5,
+                         "smoke_trace_walk_chain.json",
+                         kernel="fence_walk_kernel")
+    return {"max_chain": int(per_block.max()), "b": b, "k": k,
+            "chain_ms": chain_ms}
 
 
 # --- phases -------------------------------------------------------------------
@@ -379,7 +430,9 @@ def phase_kernels(data: bytes) -> dict:
             f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
             f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}); {bsz * n} slots, "
             f"{bd['walked_pairs']} walked pairs "
-            f"({bd['walked_pairs'] / (bsz * n):.2f} a slot)")
+            f"({bd['walked_pairs'] / (bsz * n):.2f} a slot); compared "
+            f"pairs by first differing dword 0..15, then equal to the cap: "
+            f"{bd['dword_hist']}")
         if depth == 32:  # FRONT's depth at l2, the main path
             rec["match_depth"] = dict(max_abs_err=err, ms=ms,
                                       plain_ms=plain_ms, **bd)
@@ -427,12 +480,19 @@ def phase_kernels(data: bytes) -> dict:
     want = fence_walk.fence_walk_mask_plain(nxt, lens)
     err = require_equal("fence_walk", got, want)
     n_starts = int(got.sum())
+    chain = walk_chain(nxt, lens, got)
     ms = cuda_ms(lambda: fence_walk.fence_walk_mask(nxt, lens), 5)
     plain_ms = cuda_ms(lambda: fence_walk.fence_walk_mask_plain(nxt, lens), 2)
     bd = walk_bound(n_starts, bsz, n, counts=False)
     log(f"K3 fence_walk B=4 n={n}: equal, {n_starts} starts, kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms")
-    rec["fence_walk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bd)
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} "
+        f"ms; max_chain {chain['max_chain']} steps (segment {chain['b']}, "
+        f"block {chain['k']}), chain_ms {chain['chain_ms']:.4f} ms (device "
+        f"time of the kernel on that block alone, its mask equal to the "
+        f"whole launch's there)")
+    rec["fence_walk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             max_chain=chain["max_chain"],
+                             chain_ms=chain["chain_ms"], **bd)
 
     got = walk_mask.walk_mask(nxt, lens)
     want = walk_mask.walk_mask_plain(nxt, lens)
@@ -440,9 +500,13 @@ def phase_kernels(data: bytes) -> dict:
     ms = cuda_ms(lambda: walk_mask.walk_mask(nxt, lens), 5)
     plain_ms = cuda_ms(lambda: walk_mask.walk_mask_plain(nxt, lens), 2)
     bd = walk_bound(n_starts, bsz, n, counts=True)
-    log(f"K4 walk_mask B=4 n={n}: equal, n_items {got[1].tolist()}, kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms")
-    rec["walk_mask"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bd)
+    log(f"K4 walk_mask B=4 n={n}: equal, n_items {got[1].tolist()} (added up "
+        f"by the kernel), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bd['bound_ms']:.3f} ms; max_chain {chain['max_chain']}, chain_ms "
+        f"{chain['chain_ms']:.4f} ms (as K3: one kernel)")
+    rec["walk_mask"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            max_chain=chain["max_chain"],
+                            chain_ms=chain["chain_ms"], **bd)
     del nxt, got, want
 
     def k5_inputs(seg):

@@ -29,13 +29,35 @@
 // mask bytes, nine in ten of them at mask-0 slots that K2 may not take, and
 // the warp waits for its longest lane.
 //
-// K1 (depth 8 or 32, every slot a candidate) keeps that per-slot walk: one
-// thread per sorted slot on a (slot tiles, B) grid, its 16 dwords in
-// registers; neighbouring threads read neighbouring candidates for the same
-// j, so the loads coalesce.  The tiled walk below measured slower for K1.
-// It stops exactly as K2 does once a best's LCP equals min(64, cap): every
-// later candidate has a larger j and no larger LCP (K1 has one tier).
-//
+// K1 (depth 8 or 32, every slot a candidate): one thread per query slot,
+// walking j = 1..depth in order, fed from shared memory.  One CTA per tile
+// of kK1Tile consecutive sorted slots of one row (one thread a slot, a warp
+// on 32 consecutive slots):
+//  1. Stage: the window [t0 - depth, t0 + kK1Tile) goes into shared memory
+//     as one 80-byte record a slot, 5 groups of 16 bytes: key, rank and
+//     dwords 0-1, then dwords 4g-2 .. 4g+1 (8 bytes of padding at the
+//     end).  A warp copies one group of 32 slots at a time: 4 coalesced
+//     rows of device memory, one 16-byte store a lane.  Every slot is a
+//     candidate of up to depth queries, so each word is read once from
+//     device memory and up to depth times from shared memory.
+//  2. Walk: a pair reads its candidate's key, rank and dwords 0-1 with one
+//     16-byte load, stops at the first other key (keys are sorted), skips
+//     a pair whose cap is below its length gate, and compares 4 more
+//     dwords of both records a step only while they are equal (dword 1
+//     differs in most same-key pairs: `chip_smoke.py` prints the
+//     histogram).  The 80-byte stride keeps a quarter warp's 16-byte loads
+//     on 32 distinct banks.  The query's position (its cap) is read once,
+//     the winner's at the end; the walk stops exactly once a best's LCP
+//     equals min(64, cap): every later candidate has a larger j and no
+//     larger LCP (one tier).
+// The walk waits on shared-memory latency (lanes of a warp stop at
+// different j, and a lane with a long match keeps the warp comparing), so
+// the kernel is built for 8 CTAs an SM, all its 64 warps: the query's
+// deeper dwords are read from its record, not kept in registers.
+// Staging the window copies 72 bytes a slot, as the per-slot loop it
+// replaces read them; at depth 8 that copy is most of the time.
+// Tiles of 512 slots measured slower (`tools/kernel_variants.py`).
+
 // K2: one CTA per tile of kTile = 1024 consecutive sorted slots of one row
 // (256 threads, 4 slots each, a warp on 32 consecutive slots).
 //  1. The CTA stages the window [t0 - depth, t0 + kTile) of keys, ranks and
@@ -72,6 +94,9 @@ constexpr int kTile = 1024;    // query slots per CTA
 constexpr int kThreads = 256;  // threads per CTA
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kK1Tile = 256;  // K1: query slots a CTA
+constexpr int kK1Groups = 5;  // K1: 16-byte groups of a slot's record
+static_assert(kK1Tile % kThreads == 0, "K1 tile");
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
                                           int src_bytes) {
@@ -110,64 +135,127 @@ __device__ __forceinline__ int pair_lcp(const int* __restrict__ dw_r, int n,
   return maxlcp;
 }
 
-// K1: one thread per sorted slot, walking every shift with its 16 dwords
-// in registers (faster for K1 than the tiled walk below).
-__global__ void match_depth_kernel(
+// K1's shared memory for a window of w slots: the records.
+__host__ __device__ constexpr size_t k1_smem_bytes(int w) {
+  return static_cast<size_t>(w) * 16 * kK1Groups;
+}
+
+__device__ __forceinline__ int first_byte(unsigned x) {  // x != 0
+  return (__ffs(static_cast<int>(x)) - 1) >> 3;
+}
+
+// K1: the per-slot walk over a staged window (see the note above).
+__global__ void __launch_bounds__(kThreads, 8) match_depth_kernel(
     const int* __restrict__ msk, const int* __restrict__ msp,
     const int* __restrict__ rank_s, const int* __restrict__ dw_s,
     const int* __restrict__ end, int* __restrict__ best_q,
     int* __restrict__ best_ro, int* __restrict__ best_len, int n, int depth,
     int ro_cap, int fence, int pad_front, int min_len, int gate, int far1,
     int far2) {
+  extern __shared__ uint4 recs[];  // [window][group]
   const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const int t0 = blockIdx.x * kK1Tile;
+  const int w0 = t0 - depth;  // slot of window index 0
+  const int lo = max(w0, 0), hi = min(t0 + kK1Tile, n);
   const size_t row = static_cast<size_t>(b) * n;
-  const int* key_r = msk + row;
-  const int* pos_r = msp + row;
-  const int* rank_r = rank_s + row;
   const int* dw_r = dw_s + static_cast<size_t>(b) * kNDw * n;
 
-  const int key = key_r[i];
-  const int p = pos_r[i];
-  const int rank = rank_r[i];
-  const int e = end[b];
-  const int cap = min(fence - ((p - pad_front) & (fence - 1)), e - p);
-  unsigned dw[kNDw];
-#pragma unroll
-  for (int t = 0; t < kNDw; ++t) dw[t] = static_cast<unsigned>(dw_r[t * n + i]);
+  // 1. stage the window: a warp's task is one group of the records of
+  // 32 slots, 4 coalesced rows of device memory, then one 16-byte store a
+  // lane (a quarter warp's stores at an 80-byte stride meet no bank
+  // twice).  Slots before 0 and past n are never read.
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tasks = ((hi - lo + 31) >> 5) * kK1Groups;
+#pragma unroll 2
+  for (int task = warp; task < tasks; task += kThreads / 32) {
+    const int g = task % kK1Groups;
+    const int c = lo + 32 * (task / kK1Groups) + lane;
+    if (c >= hi) continue;
+    const int* dw = dw_r + c;  // dword row t of slot c at dw[t * n]
+    auto dword = [&](int t) {
+      return static_cast<unsigned>(__ldg(dw + static_cast<size_t>(t) * n));
+    };
+    const bool full = 4 * g + 1 < kNDw;  // not the padded last group
+    recs[(c - w0) * kK1Groups + g] =
+        g == 0 ? make_uint4(static_cast<unsigned>(__ldg(msk + row + c)),
+                            static_cast<unsigned>(__ldg(rank_s + row + c)),
+                            dword(0), dword(1))
+               : make_uint4(dword(4 * g - 2), dword(4 * g - 1),
+                            full ? dword(4 * g) : 0u,
+                            full ? dword(4 * g + 1) : 0u);
+  }
+  __syncthreads();
 
-  int bs = 0, bq = -1, bro = 0, blen = 0;
-  const int jmax = min(depth, i);
-  for (int j = 1; j <= jmax; ++j) {
-    const int c = i - j;
-    if (key_r[c] != key) break;  // sorted: every earlier slot differs too
-    const int ro = rank - 1 - rank_r[c];
-    if (ro >= ro_cap) continue;
-    int lcp = 4 * kNDw;
-#pragma unroll
-    for (int t = 0; t < kNDw; ++t) {
-      const unsigned x = dw[t] ^ static_cast<unsigned>(dw_r[t * n + c]);
+  // 2. each thread's queries walk their candidates newest first
+  const int e = end[b];
+  const int need_min = min(min_len, min(min_len + gate, min_len + 2 * gate));
+  for (int k = 0; k < kK1Tile / kThreads; ++k) {
+    const int i = t0 + k * kThreads + static_cast<int>(threadIdx.x);
+    if (i >= n) break;
+    const int q = i - w0;  // the query's window index
+    const uint4* qrec = recs + q * kK1Groups;
+    const uint4 q0 = qrec[0];
+    const int key = static_cast<int>(q0.x), rank = static_cast<int>(q0.y);
+    const int p = msp[row + i];
+    const int cap = min(fence - ((p - pad_front) & (fence - 1)), e - p);
+    const int maxlcp = min(4 * kNDw, cap);
+    int bs = 0, bc = -1, bro = 0, blen = 0;
+    const int jmax = maxlcp >= need_min ? min(depth, i) : 0;
+    for (int j = 1; j <= jmax; ++j) {
+      const int cw = q - j;
+      const uint4* rec = recs + cw * kK1Groups;
+      const uint4 a = rec[0];  // key, rank, dwords 0-1
+      if (static_cast<int>(a.x) != key) break;  // sorted: the rest differ
+      const int ro = rank - 1 - static_cast<int>(a.y);
+      if (ro >= ro_cap) continue;
+      const int need = min_len + gate * (ro >= far1) + gate * (ro >= far2);
+      if (maxlcp < need) continue;
+      int lcp = maxlcp;
+      unsigned x = q0.z ^ a.z;
       if (x != 0u) {
-        lcp = 4 * t + ((__ffs(static_cast<int>(x)) - 1) >> 3);
-        break;
+        lcp = first_byte(x);
+      } else if ((x = q0.w ^ a.w) != 0u) {
+        lcp = 4 + first_byte(x);
+      } else {
+#pragma unroll
+        for (int g = 1; g < kK1Groups; ++g) {  // dwords 4g-2 .. 4g+1
+          const int t = 4 * g - 2;
+          if (4 * t >= maxlcp) break;  // equal through the cap
+          const uint4 v = rec[g], qv = qrec[g];
+          if ((x = qv.x ^ v.x) != 0u) {
+            lcp = 4 * t + first_byte(x);
+            break;
+          }
+          if ((x = qv.y ^ v.y) != 0u) {
+            lcp = 4 * (t + 1) + first_byte(x);
+            break;
+          }
+          if (t + 2 >= kNDw) break;  // the last group's padding
+          if ((x = qv.z ^ v.z) != 0u) {
+            lcp = 4 * (t + 2) + first_byte(x);
+            break;
+          }
+          if ((x = qv.w ^ v.w) != 0u) {
+            lcp = 4 * (t + 3) + first_byte(x);
+            break;
+          }
+        }
+      }
+      lcp = min(lcp, maxlcp);
+      if (lcp < need) continue;
+      const int score = lcp * 1024 + (1023 - j);
+      if (score > bs) {
+        bs = score;
+        bc = cw;
+        bro = ro;
+        blen = lcp;
+        if (lcp == maxlcp) break;  // every later score is lower
       }
     }
-    lcp = min(lcp, cap);
-    const int need = min_len + gate * (ro >= far1) + gate * (ro >= far2);
-    if (lcp < need) continue;
-    const int score = lcp * 1024 + (1023 - j);
-    if (score > bs) {
-      bs = score;
-      bq = pos_r[c];
-      bro = ro;
-      blen = lcp;
-      if (lcp == min(4 * kNDw, cap)) break;  // every later score is lower
-    }
+    best_q[row + i] = bc >= 0 ? msp[row + w0 + bc] : -1;
+    best_ro[row + i] = bro;
+    best_len[row + i] = blen;
   }
-  best_q[row + i] = bq;
-  best_ro[row + i] = bro;
-  best_len[row + i] = blen;
 }
 
 // K2: the tiled walk over the compacted mask-1 list (see the note above).
@@ -298,8 +386,14 @@ extern "C" int otz_match_depth(const int* msk, const int* msp,
                                int n_dw, void* stream) {
   if (n_dw != kNDw || depth < 1 || depth > 1023 || n < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 256;
-  match_depth_kernel<<<dim3((n + threads - 1) / threads, B), threads, 0,
+  const size_t bytes = k1_smem_bytes(kK1Tile + depth);
+  if (bytes > 48 * 1024) {  // above 48 KB only after opting in
+    const cudaError_t err = cudaFuncSetAttribute(
+        match_depth_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  match_depth_kernel<<<dim3((n + kK1Tile - 1) / kK1Tile, B), kThreads, bytes,
                        static_cast<cudaStream_t>(stream)>>>(
       msk, msp, rank_s, dw_s, end, best_q, best_ro, best_len, n, depth,
       ro_cap, fence, pad_front, min_len, gate, far1, far2);

@@ -33,7 +33,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "otz_match_depth": [_P] * 8 + [_I] * 11 + [_P],
     "otz_match_depth_masked": [_P] * 9 + [_I] * 13 + [_P],
-    "otz_fence_walk": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "otz_fence_walk": [_P] * 4 + [_I] * 5 + [_P],
     "otz_symrank": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "otz_windowed_gather": [_P, _P, _P, _P, _I, _I, _P],
 }

@@ -48,21 +48,29 @@ def check_inputs(name: str, nxt: torch.Tensor, seg_lens: torch.Tensor):
                          "int32")
 
 
-def launch_walk(name: str, nxt: torch.Tensor, seg_lens: torch.Tensor):
-    """Run the walk kernel on CUDA tensors; returns the start mask.  Shared
-    by K3 and K4 (``kernels/walk_mask.py``), which count their own
-    launches."""
+def launch_walk(name: str, nxt: torch.Tensor, seg_lens: torch.Tensor,
+                counts: bool = False):
+    """Run the walk kernel on CUDA tensors; returns the start mask (every
+    byte written by the kernel) and the (B,) int32 item counts that the
+    kernel adds up (None without ``counts``).  Shared by K3 and K4
+    (``kernels/walk_mask.py``), which count their own launches."""
     bsz, n = nxt.shape
+    if n <= PAD_FRONT:
+        raise ValueError(f"{name}: n = {n} leaves no block after the "
+                         f"{PAD_FRONT}-position head")
     end = (PAD_FRONT + seg_lens).int()
     stream = _lib.cuda_stream(name, nxt, end)
-    mask = torch.zeros((bsz, n), dtype=torch.bool, device=nxt.device)
+    mask = torch.empty((bsz, n), dtype=torch.bool, device=nxt.device)
+    n_items = torch.zeros(bsz, dtype=torch.int32, device=nxt.device) \
+        if counts else None
     n_blocks = -(-(n - PAD_FRONT) // FENCE)
     rc = _lib.library().otz_fence_walk(
-        nxt.data_ptr(), end.data_ptr(), mask.data_ptr(), bsz, n, n_blocks,
-        FENCE, PAD_FRONT, stream,
+        nxt.data_ptr(), end.data_ptr(), mask.data_ptr(),
+        n_items.data_ptr() if counts else None, bsz, n, n_blocks, FENCE,
+        PAD_FRONT, stream,
     )
-    _lib.check(rc, "otz_fence_walk")
-    return mask
+    _lib.check(rc, name)
+    return mask, n_items
 
 
 def fence_walk_mask(nxt: torch.Tensor, seg_lens: torch.Tensor):
@@ -70,7 +78,7 @@ def fence_walk_mask(nxt: torch.Tensor, seg_lens: torch.Tensor):
     check_inputs("fence_walk", nxt, seg_lens)
     if nxt.device.type == "cpu":
         return fence_walk_mask_plain(nxt, seg_lens)
-    mask = launch_walk("fence_walk", nxt, seg_lens)
+    mask, _ = launch_walk("fence_walk", nxt, seg_lens)
     global launches
     launches += 1
     return mask

@@ -4,8 +4,8 @@ Replaces ``orz_tpu/ops/walk_pallas.py`` ``walk_mask_pallas``
 (``_mask_kernel``): given the parse's ``nxt`` (B, n) int32, returns the
 (B, n) bool item-start mask in position order and the (B,) int32 item
 counts, with no start compaction.  It launches the same CUDA entry point
-as K3 (``csrc/fence_walk.cu``), whose kernel already writes exactly this
-mask; the count is a row sum.
+as K3 (``csrc/fence_walk.cu``), whose kernel writes exactly this mask and
+adds up the counts.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def walk_mask(nxt: torch.Tensor, seg_lens: torch.Tensor):
     check_inputs("walk_mask", nxt, seg_lens)
     if nxt.device.type == "cpu":
         return walk_mask_plain(nxt, seg_lens)
-    mask = launch_walk("walk_mask", nxt, seg_lens)
+    out = launch_walk("walk_mask", nxt, seg_lens, counts=True)
     global launches
     launches += 1
-    return mask, mask.sum(dim=1).int()
+    return out

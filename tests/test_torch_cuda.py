@@ -22,8 +22,13 @@ from orz_tpu_torch.kernels import (
     walk_mask,
 )
 from orz_tpu_torch.ops import batched as ob
-from orz_tpu_torch.spec import OTZ2_RO_CAP, PAD_FRONT, RING
-from torch_walk_inputs import WALK_VARIANTS, walk_inputs, walk_plain
+from orz_tpu_torch.spec import FENCE, OTZ2_RO_CAP, PAD_FRONT, RING
+from torch_walk_inputs import (
+    WALK_VARIANTS,
+    fence_walk_inputs,
+    walk_inputs,
+    walk_plain,
+)
 
 CAP = 1 << 18
 
@@ -137,6 +142,86 @@ def test_match_depth_tiles_match_plain(cuda, variant, mask):
     _equal(got, walk_plain(args, 384, variant))
     if variant == "k1" or mask != "zeros":
         assert int((got[0] >= 0).sum()) > 500
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [4, 8, 32])
+def test_match_depth_k1_tiles_match_plain(cuda, depth):
+    """K1 at FRONT's depths on rows of 3 x 256 + 101 slots (three of its
+    256-slot tiles and a ragged fourth): row 0's key groups start at slot 0
+    and straddle the tile edges and their depth-slot halos (250 | 12 |
+    30 | 300 | 200 slots: edges at 256, 512, 768), row 1 has small groups;
+    positions reach the fence and segment-end caps."""
+    n = 3 * 256 + 101
+    rng = np.random.default_rng(8)
+    groups = [[250, 12, 30, 300, 200], list(rng.integers(1, 40, 30))]
+    args = tuple(t.to(cuda) for t in walk_inputs(9, n, groups))
+    before = match_depth.launches
+    got = walk(args, depth, "k1")
+    torch.cuda.synchronize()
+    assert match_depth.launches == before + 1
+    _equal(got, walk_plain(args, depth, "k1"))
+    assert int((got[0] >= 0).sum()) > 300
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_extra", [288, 777])
+def test_walk_kernels_match_plain_stress(cuda, n_extra):
+    """K3 and K4 on the stress rows of ``fence_walk_inputs`` (every block
+    kind in every row; segments ending inside a block, at the row's end,
+    and empty) at n = PAD_FRONT + 24 blocks + n_extra: 288 keeps the rows
+    16-byte aligned, 777 does not (the kernel's scalar paths).  The mask,
+    K4's counts from the kernel and K3's starts."""
+    n = PAD_FRONT + 24 * FENCE + n_extra
+    lens = [24 * FENCE, 13 * FENCE + 1234, 0, 24 * FENCE + n_extra - 5]
+    nxt, seg_lens = (t.to(cuda) for t in fence_walk_inputs(3, n, lens))
+    want = fence_walk.fence_walk_mask_plain(nxt, seg_lens)
+    before = (walk_mask.launches, fence_walk.launches)
+    got = walk_mask.walk_mask(nxt, seg_lens)
+    items = fence_walk.walk_items(nxt, seg_lens)
+    torch.cuda.synchronize()
+    assert (walk_mask.launches, fence_walk.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    _equal(got, (want, want.sum(dim=1).int()))
+    _equal(items, (*fence_walk.starts_from_mask(want, seg_lens), want))
+    assert bool(want[0, PAD_FRONT:PAD_FRONT + FENCE].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k1_dtype", "k1_contiguous", "walk_dtype",
+                                  "walk_shape", "walk_contiguous"])
+def test_wrappers_raise_on_bad_cuda_input(cuda, case):
+    """On CUDA tensors the K1 and K3/K4 wrappers raise on what their
+    kernels cannot take, and launch nothing."""
+    if case.startswith("k1"):
+        args = [t.to(cuda) for t in walk_inputs(2, 600, [[300, 200]])][:5]
+        if case == "k1_dtype":
+            args[2] = args[2].long()
+        else:  # same shape, every other column of a wider tensor
+            wide = torch.zeros((1, 1200), dtype=torch.int32, device=cuda)
+            wide[:, ::2] = args[0]
+            args[0] = wide[:, ::2]
+        before = match_depth.launches
+        with pytest.raises(ValueError):
+            match_depth.match_depth(*args, 32)
+        assert match_depth.launches == before
+        return
+    nxt, lens = (t.to(cuda) for t in fence_walk_inputs(
+        4, PAD_FRONT + FENCE + 100, [FENCE]))
+    if case == "walk_dtype":
+        nxt = nxt.long()
+    elif case == "walk_shape":
+        lens = lens.repeat(2)
+    else:
+        wide = torch.zeros((1, 2 * nxt.shape[1]), dtype=torch.int32,
+                           device=cuda)
+        wide[:, ::2] = nxt
+        nxt = wide[:, ::2]
+    before = (fence_walk.launches, walk_mask.launches)
+    for fn in (fence_walk.fence_walk_mask, walk_mask.walk_mask):
+        with pytest.raises(ValueError):
+            fn(nxt, lens)
+    assert (fence_walk.launches, walk_mask.launches) == before
 
 
 @pytest.mark.cuda

@@ -5,8 +5,10 @@ hold those plain versions to the JAX package at B=2, cap=1<<15, on arrays
 from a real FRONT: K1 and K2 (masked, on the FRONT parse's mask and the
 port's own plan) against ``match_depth_pallas`` (interpret mode), K3 and
 K4 against ``walk_items_b`` / ``walk_mask_pallas`` (what the JAX package
-runs off the TPU), K5 against ``symrank_pallas_b`` (interpret mode) and the
-sequential oracle.  All outputs are integers: tolerance 0.
+runs off the TPU) and against the Pallas walk kernels themselves
+(interpret mode, on stress rows), K5 against ``symrank_pallas_b``
+(interpret mode) and the sequential oracle.  All outputs are integers:
+tolerance 0.
 """
 
 from types import SimpleNamespace
@@ -37,7 +39,13 @@ from orz_tpu_torch.spec import (
     _FAR_GATE,
 )
 from tests.conftest import make_binary_like, make_text_like
-from torch_walk_inputs import WALK_VARIANTS, walk_inputs, walk_plain
+from torch_walk_inputs import (
+    WALK_KINDS,
+    WALK_VARIANTS,
+    fence_walk_inputs,
+    walk_inputs,
+    walk_plain,
+)
 
 torch.set_num_threads(2)
 
@@ -183,6 +191,138 @@ def test_fence_walk_plain_matches_walk_items_b(batch):
     np.testing.assert_array_equal(starts.numpy(), np.asarray(j_starts))
     np.testing.assert_array_equal(mask.numpy(), np.asarray(j_mask))
     assert int(n_items.min()) > 1000
+
+
+def _pallas_walk(nxt, lens):
+    """``walk_pallas``'s REC and MASK kernels in interpret mode, built as
+    ``tests/test_walk_pallas.py`` builds them: the (B, n) bool mask and the
+    per-segment starts sorted, the REC kernel's sentinel last."""
+    from orz_tpu.ops import walk_pallas as W
+
+    bsz, n = nxt.shape
+    localT, blk_endT, base, _, n_blocks, nb_total, cells = W._prep(
+        jnp.asarray(nxt.numpy()), jnp.asarray(lens.numpy()), n)
+    rec = W._call(W._rec_kernel, localT, blk_endT, cells).T[:nb_total]
+    starts = jnp.sort(jnp.where(
+        rec >= W.SENT, jnp.int32(0x7FFFFFFE), rec + base[:, None]
+    ).reshape(bsz, n_blocks * FENCE), axis=-1)
+    mk = W._call(W._mask_kernel, localT, blk_endT, cells).T[:nb_total]
+    width = min(n - PAD_FRONT, n_blocks * FENCE)
+    mask = np.zeros((bsz, n), bool)
+    mask[:, PAD_FRONT:PAD_FRONT + width] = np.asarray(
+        mk.reshape(bsz, n_blocks * FENCE)[:, :width]) != 0
+    return mask, np.asarray(starts)
+
+
+def test_walk_plain_matches_pallas_kernels():
+    """K3's and K4's plain walks (``fence_walk_mask_plain``, ``walk_items``,
+    ``walk_mask_plain``) against the Pallas REC and MASK kernels run in
+    interpret mode, on two segments of unequal length that both end
+    inside a block, n - PAD_FRONT not a multiple of FENCE, and one block
+    of each kind of ``fence_walk_inputs``: block 0 of row 0 is FENCE
+    length-1 items (the longest chain), row 1's blocks jump past their end
+    and to chunk edges."""
+    n = PAD_FRONT + 2 * FENCE + 1000
+    nxt, lens = fence_walk_inputs(7, n, [2 * FENCE + 900, FENCE + 1234],
+                                  first=[0, 3])
+    mask, starts = _pallas_walk(nxt, lens)
+    np.testing.assert_array_equal(
+        fence_walk.fence_walk_mask_plain(nxt, lens).numpy(), mask)
+    k4_mask, k4_items = walk_mask.walk_mask_plain(nxt, lens)
+    np.testing.assert_array_equal(k4_mask.numpy(), mask)
+    np.testing.assert_array_equal(k4_items.numpy(), mask.sum(axis=1))
+    k3_starts, k3_items, k3_mask = fence_walk.walk_items(nxt, lens)
+    np.testing.assert_array_equal(k3_mask.numpy(), mask)
+    end = (PAD_FRONT + lens).numpy()
+    n_items = (starts < end[:, None]).sum(axis=1)
+    np.testing.assert_array_equal(k3_items.numpy(), n_items)
+    for b in range(2):
+        np.testing.assert_array_equal(k3_starts[b, :n_items[b]].numpy(),
+                                      starts[b, :n_items[b]])
+        assert (k3_starts[b, n_items[b]:] == int(end[b])).all()
+    assert mask[0, PAD_FRONT:PAD_FRONT + FENCE].all()
+    assert mask[1, PAD_FRONT + FENCE + 1234:].sum() == 0
+
+
+def _chunked_walk(jump, blk_end: int):
+    """The walk of ``csrc/fence_walk.cu`` in Python, for one block's local
+    jumps: lane l walks its chunk [128 l, 128 l + 128) speculatively from
+    the chunk's first position; then, in lane order, each chunk is fixed
+    up from its true entry (the previous chunk's true exit): no starts if
+    the entry lies past the chunk, the speculation if it is the chunk's
+    first position, else a walk from the entry until it meets a
+    speculative mark (the merge point m) or leaves the chunk; the chunk's
+    marks are the fix-up marks below m and the speculative ones from m on.
+    Returns the marks and the fix-up steps."""
+    chunk = FENCE // 32
+    spec = np.zeros(FENCE, bool)
+    fix = np.zeros(FENCE, bool)
+    exits = []
+    for lane in range(32):
+        cur, c_end = lane * chunk, min(lane * chunk + chunk, blk_end)
+        while cur < c_end:
+            spec[cur] = True
+            cur = max(int(jump[cur]), cur + 1)
+        exits.append(cur)
+    marks = np.zeros(FENCE, bool)
+    entry = steps = 0
+    for lane in range(32):
+        c0 = lane * chunk
+        c_end, m = min(c0 + chunk, blk_end), c0
+        if entry >= c_end:
+            m, out = c0 + chunk, entry
+        elif entry == c0:
+            out = exits[lane]
+        else:
+            cur = entry
+            while cur < c_end and not spec[cur]:
+                fix[cur] = True
+                cur = max(int(jump[cur]), cur + 1)
+                steps += 1
+            m, out = (cur, exits[lane]) if cur < c_end else (c0 + chunk, cur)
+        at = np.arange(c0, c0 + chunk)
+        marks[at] = np.where(at < m, fix[at], spec[at])
+        entry = out
+    return marks, steps
+
+
+def test_walk_chunk_model_matches_plain():
+    """The chunked speculative walk (``_chunked_walk``) equals the plain
+    walk on every block of the stress rows, the longest chain, jumps past
+    the block, segment ends inside a block, an empty segment and 'thirds'
+    blocks included, whose fix-ups never merge."""
+    n = PAD_FRONT + 12 * FENCE + 333
+    nxt, lens = fence_walk_inputs(11, n, [12 * FENCE + 333,
+                                          7 * FENCE + 2000, 0])
+    want = fence_walk.fence_walk_mask_plain(nxt, lens).numpy()
+    steps = dict.fromkeys(WALK_KINDS, 0)
+    for b in range(3):
+        for base in range(PAD_FRONT, n, FENCE):
+            width = min(FENCE, n - base)
+            jump = np.ones(FENCE, np.int64)
+            jump[:width] = np.clip(nxt[b, base:base + width].numpy()
+                                   .astype(np.int64) - base, 1, FENCE)
+            blk_end = int(np.clip(PAD_FRONT + int(lens[b]) - base, 0, width))
+            marks, k = _chunked_walk(jump, blk_end)
+            np.testing.assert_array_equal(marks[:width],
+                                          want[b, base:base + width])
+            kind = WALK_KINDS[(b + (base - PAD_FRONT) // FENCE) % 6]
+            steps[kind] = max(steps[kind], k)
+    assert steps["thirds"] > 800  # fix-ups over whole chunks
+    assert steps["literals"] == 0  # every chunk start is on the path
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape"])
+def test_walk_rejects_bad_input(bad):
+    nxt, lens = fence_walk_inputs(1, PAD_FRONT + FENCE, [100])
+    if bad == "dtype":
+        nxt = nxt.long()
+    else:
+        lens = lens.repeat(2)
+    for fn in (fence_walk.fence_walk_mask, fence_walk.walk_items,
+               walk_mask.walk_mask):
+        with pytest.raises(ValueError):
+            fn(nxt, lens)
 
 
 def test_symrank_plain_matches_pallas_and_oracle(items):

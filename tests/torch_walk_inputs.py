@@ -1,5 +1,6 @@
-"""K1/K2 inputs built to stress the walk, shared by the CPU tests
-(``test_torch_kernels.py``) and the card tests (``test_torch_cuda.py``).
+"""Inputs built to stress the kernels' walks, shared by the CPU tests
+(``test_torch_kernels.py``) and the card tests (``test_torch_cuda.py``):
+K1/K2's candidate walk and K3/K4's fence-block walk.
 
 Imports neither jax nor the repository's conftest, so that the card tests
 run on a machine without jax."""
@@ -72,3 +73,50 @@ def walk_plain(args, depth: int, variant: str):
     mask_s = None if variant == "k1" else args[5]
     return match_depth.match_depth_plain(*args[:5], depth, ro_cap, mask_s,
                                          near, near_cap)
+
+
+# K3/K4 block kinds (``fence_walk_inputs``): how a block's items are laid out
+WALK_KINDS = ("literals", "thirds", "short", "leaving", "edges", "long")
+
+
+def fence_walk_inputs(seed: int, n: int, lens: list[int],
+                      first: list[int] | None = None):
+    """K3/K4 inputs ``(nxt, seg_lens)``: (B, n) int32 jumps and (B,)
+    int32 segment lengths.  Block k of row b takes the kind
+    ``WALK_KINDS[(first[b] + k) % 6]`` (``first`` defaults to the row
+    numbers): FENCE length-1 items (the longest chain);
+    items of 3 (the chunk starts of the chunked walk miss the true path, so
+    its fix-ups never merge); random lengths 1..20; lengths 1..600 with 2%
+    jumps past the block; length 1 with 5% jumps to the next 128-position
+    chunk edge, the block's end or far past n; random lengths 1..FENCE.
+    Every jump goes forward (nxt[p] > p), as the parse's do: the plain
+    walk follows nxt unclipped, the kernels clip it to the block."""
+    rng = np.random.default_rng(seed)
+    bsz = len(lens)
+    first = range(bsz) if first is None else first
+    nxt = np.zeros((bsz, n), np.int64)
+    for b in range(bsz):
+        for base in range(PAD_FRONT, n, FENCE):
+            pos = np.arange(base, min(base + FENCE, n))
+            kind = WALK_KINDS[(first[b] + (base - PAD_FRONT) // FENCE) % 6]
+            size = pos.size
+            if kind == "literals":
+                step = np.ones(size, np.int64)
+            elif kind == "thirds":
+                step = np.full(size, 3)
+            elif kind == "short":
+                step = rng.integers(1, 21, size)
+            elif kind == "leaving":
+                step = np.where(rng.random(size) < 0.02, 5000,
+                                rng.integers(1, 601, size))
+            elif kind == "edges":
+                edge = np.stack([(pos - base) // 128 * 128 + 128,
+                                 np.full(size, FENCE),
+                                 np.full(size, 2**30)])[
+                    rng.integers(0, 3, size), np.arange(size)] + base - pos
+                step = np.where(rng.random(size) < 0.05, edge, 1)
+            else:
+                step = rng.integers(1, FENCE + 1, size)
+            nxt[b, pos] = np.clip(pos + step, -2**31, 2**31 - 1)
+    return (torch.from_numpy(nxt.astype(np.int32)),
+            torch.tensor(lens, dtype=torch.int32))
