@@ -54,6 +54,15 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    per-stage times of one 4 x 8 MiB l2 batch (FRONT, QUALITY scan,
    QUALITY tail, MID2, BACK), read through encode_segments_batch's stage
    hook.
+   Then the host codecs (phase_host), on the CPU of the card's machine:
+   `cli encode -b native -l 2` as an orz stream and with `-p 4` as ORZP,
+   each decoded by `-b native` and `-b gpu` to the input, MB/s over each
+   process and by its statistics, the native backend required (no golden
+   fallback); ratio_vs_orz_l2 (the port's l2 ORZT stream of the first
+   8 MiB over the native l2 orz stream); golden = native at l0 on 64 KiB;
+   benchtool's table on the first 4 MiB (one round, native), whose device
+   row must round-trip and launch every encoder kernel (counts reset just
+   before it, read just after).
 8. e2e l1: the same 32 MiB at level 1 (K1, K3 and K5 must launch).
 9. profile: one warm 4 x 8 MiB encode_segments_batch at l2 and at l1 under
    torch.profiler; prints the wall time, device busy time (union of
@@ -210,20 +219,26 @@ def max_sm_clock_hz() -> float:
     return float(out[0]) * 1e6
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return smi[0] if smi else "nvidia-smi printed nothing"
+
+
 def phase_device() -> dict:
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: this smoke "
                            "run needs a CUDA GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    log(smi[0] if smi else "nvidia-smi printed nothing")
+    log(card_line())
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
-        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+        f"cuda {torch.version.cuda} numpy {np.__version__} device "
+        f"{torch.cuda.get_device_name(0)}")
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
 
@@ -640,6 +655,23 @@ def phase_gather() -> dict:
             "library_ms": library_ms, "launches": launches, **bd}
 
 
+def cli(*argv) -> tuple[float, str]:
+    """Runs ``python -m orz_tpu_torch.cli *argv``; returns its wall seconds
+    and the speed line of the statistics that it prints to stderr (timed
+    from its start-up's end)."""
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "orz_tpu_torch.cli", *argv],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t
+    if res.returncode != 0:
+        raise AssertionError(f"cli {' '.join(argv[:3])}: exit "
+                             f"{res.returncode}: {res.stderr[-3000:]}")
+    speed = [ln.split(":", 1)[1].strip() for ln in res.stderr.splitlines()
+             if ln.strip().startswith("speed:")]
+    return wall, speed[-1] if speed else "no statistics"
+
+
 def phase_cli(data: bytes, stream: bytes) -> None:
     """The port's command line in subprocesses, on the e2e l2 data: its
     file must equal the e2e stream and decode through the CLI; a
@@ -663,21 +695,6 @@ def phase_cli(data: bytes, stream: bytes) -> None:
     with open(path["in16.bin"], "wb") as f:
         f.write(half)
     torch.cuda.empty_cache()  # room for the subprocesses
-
-    def cli(*argv) -> tuple[float, str]:
-        """Wall seconds, and the speed line of the statistics that the CLI
-        prints to stderr (timed from its start-up's end)."""
-        t = time.perf_counter()
-        res = subprocess.run([sys.executable, "-m", "orz_tpu_torch.cli",
-                              *argv], cwd=ROOT, capture_output=True,
-                             text=True, timeout=600)
-        wall = time.perf_counter() - t
-        if res.returncode != 0:
-            raise AssertionError(f"cli {argv[0]}: exit {res.returncode}: "
-                                 f"{res.stderr[-3000:]}")
-        speed = [ln.split(":", 1)[1].strip() for ln in res.stderr.splitlines()
-                 if ln.strip().startswith("speed:")]
-        return wall, speed[-1] if speed else "no statistics"
 
     def read(name) -> bytes:
         with open(path[name], "rb") as f:
@@ -709,6 +726,129 @@ def phase_cli(data: bytes, stream: bytes) -> None:
     for p in path.values():
         if os.path.exists(p):
             os.remove(p)
+
+
+def phase_host(data: bytes) -> dict:
+    """The host codecs and the benchtool on the e2e data.  Their numbers
+    are the CPU's of the machine that holds the card, labelled so.
+
+    - ``cli encode -b native -l 2`` as an orz stream and with ``-p 4`` as
+      ORZP (one 32 MiB segment here: the ORZP default), each decoded by
+      ``-b native`` and by ``-b gpu`` (which reads host streams through
+      auto) and equal to the input; MB/s over each process and by its own
+      statistics.  -b native exits 1 where the native build fails, and
+      auto must resolve to the native backend here: golden must not run.
+    - ratio_vs_orz_l2 as bench.py defines it: the port's l2 ORZT stream of
+      the first 8 MiB over the native l2 orz stream of the same bytes.
+    - golden against native at l0 on the first 64 KiB: equal bytes.
+    - ``benchtool.main`` (``python -m orz_tpu_torch.benchtool``) on the
+      first 4 MiB, one round, native backend: its table, and its device
+      row (the l2 encode on the card), whose MD5 round trip must pass.
+      Every count is set to 0 just before it and read just after: the
+      device row must have launched each encoder kernel.
+
+    Returns the device row's launch counts."""
+    import contextlib
+    import io
+
+    import torch
+
+    from orz_tpu_torch import benchtool, cfg_from_level, default_backend
+    from orz_tpu_torch.container import GoldenBackend, encode_bytes
+    from orz_tpu_torch.device import container
+    from orz_tpu_torch.native import NativeBackend
+
+    label = (f"host CPU ({os.cpu_count()} cores) of the machine that holds "
+             f"{card_line()}")
+    backend = default_backend()
+    log(f"host codecs on the {label}: auto resolves to "
+        f"{type(backend).__name__}")
+    if not isinstance(backend, NativeBackend):
+        raise AssertionError("host: the native build failed, auto fell "
+                             "back to golden")
+
+    work = os.path.join(ROOT, "build", "smoke_host")
+    os.makedirs(work, exist_ok=True)
+    path = {k: os.path.join(work, k) for k in
+            ("in.bin", "out.orz", "out.orzp", "back.bin", "in4.bin")}
+    with open(path["in.bin"], "wb") as f:
+        f.write(data)
+
+    def read(name) -> bytes:
+        with open(path[name], "rb") as f:
+            return f.read()
+
+    mb = len(data) / 1e6
+    for name, par in (("out.orz", []), ("out.orzp", ["-p", "4"])):
+        enc_s, enc_stat = cli("encode", "-b", "native", "-l", "2", *par,
+                              path["in.bin"], path[name])
+        head = read(name)[:5]
+        if (head == b"ORZP\x01") != bool(par):
+            raise AssertionError(f"host: {name} has the magic {head!r}")
+        dec = []
+        for backend_name in ("native", "gpu"):
+            dec_s, dec_stat = cli("decode", "-b", backend_name, path[name],
+                                  path["back.bin"])
+            if read("back.bin") != data:
+                raise AssertionError(f"host: decode -b {backend_name} of "
+                                     f"{name} does not round-trip")
+            dec.append(f"decode -b {backend_name} {mb / dec_s:.3f} "
+                       f"({dec_stat}; {dec_s:.2f} s)")
+        kind = "ORZP -p 4" if par else "orz"
+        log(f"host cli encode -b native -l 2, {kind}, MB/s of the whole "
+            f"process (its own statistics): encode {mb / enc_s:.3f} "
+            f"({enc_stat}; {enc_s:.2f} s), {len(read(name))} bytes, ratio "
+            f"{len(read(name)) / len(data):.6f}; {'; '.join(dec)}; "
+            f"round trips ok; backend NativeBackend ({label})")
+
+    sample = data[:8 * MIB]
+    t = time.perf_counter()
+    orz_size = len(encode_bytes(sample, cfg_from_level(2), backend))
+    orz_s = time.perf_counter() - t
+    otz_size = len(container.torch_encode_bytes(sample, level=2,
+                                                device="cuda"))
+    log(f"ratio_vs_orz_l2 {otz_size / orz_size:.6f}: the port's l2 ORZT "
+        f"stream of the first 8 MiB {otz_size} bytes over the native l2 orz "
+        f"stream {orz_size} bytes (native encode {orz_s:.3f} s in-process)")
+
+    head = data[:64 << 10]
+    t = time.perf_counter()
+    golden = encode_bytes(head, cfg_from_level(0), GoldenBackend())
+    golden_s = time.perf_counter() - t
+    if golden != encode_bytes(head, cfg_from_level(0), backend):
+        raise AssertionError("host: golden and native differ at l0 on 64 KiB")
+    log(f"golden = native at l0 on the first 64 KiB: {len(golden)} bytes "
+        f"equal (golden {golden_s:.2f} s)")
+
+    with open(path["in4.bin"], "wb") as f:
+        f.write(data[:4 * MIB])
+    mods = _kernel_modules()
+    torch.cuda.synchronize()
+    for mod in mods.values():
+        mod.launches = 0
+    out, err = io.StringIO(), io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = benchtool.main([path["in4.bin"], "--rounds", "1", "--backend",
+                             "native"])
+    bench_s = time.perf_counter() - t
+    launches = {k: mod.launches for k, mod in mods.items()}
+    if rc != 0 or "FAILED" in err.getvalue():
+        raise AssertionError(f"benchtool: exit {rc}: {err.getvalue()[-3000:]}")
+    log(f"benchtool on the first 4 MiB, --rounds 1 --backend native "
+        f"({bench_s:.1f} s; {label}):")
+    for ln in out.getvalue().splitlines():
+        log(f"  {ln}")
+    if "**orz-tpu -b gpu -l2**" not in out.getvalue():
+        raise AssertionError("benchtool: no device row")
+    log(f"benchtool device row: MD5 round trip ok, launches {launches}")
+    for k in ENCODER_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"benchtool: kernel {k} never launched")
+    for p in path.values():
+        if os.path.exists(p):
+            os.remove(p)
+    return launches
 
 
 def phase_cpu_parity(seed: int) -> None:
@@ -951,6 +1091,7 @@ def main() -> int:
         rec[k].update(launches=launches[k], library_ms=None)
     phase_cli(data, stream)
     del stream
+    phase_host(data)
     phase_stages(data)
     e2e(data, 1, ["match_depth", "fence_walk", "symrank"])
     phase_profile(data, 2)

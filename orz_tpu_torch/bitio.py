@@ -1,11 +1,13 @@
-"""The bit writer the port's stream assembly uses, copied.
+"""The bit writer and reader of the port, copied.
 
-``BitEncoder`` with the methods that ``device/host.assemble_segment_np``
-and the segment framing call, copied from ``orz_tpu/golden/bitio.py``
+``BitEncoder`` and ``BitDecoder``, copied from ``orz_tpu/golden/bitio.py``
 (reference src/coder.rs): MSB-first bits over big-endian u32 words through
 a 64-bit staging buffer; the in-bitstream varint emits 2-bit groups (value
-bit, continuation bit).  ``tests/test_torch_host.py`` holds its output to
-the original's.
+bit, continuation bit).  The device stream assembly
+(``device/host.assemble_segment_np``) and the golden model
+(``golden/lz.py``) share the one ``BitEncoder``.
+``tests/test_torch_host.py`` and ``tests/test_torch_hostcodec.py`` hold
+both to the originals.
 """
 
 from __future__ import annotations
@@ -49,6 +51,11 @@ class BitEncoder:
             v >>= 1
             if not has_next:
                 break
+
+    def encode_huffman_sym(self, encodings, sym: int) -> None:
+        self._reserve32()
+        code, code_len = encodings[sym]
+        self._put(code_len, code)
 
     def encode_huffman_table(self, code_lens) -> None:
         """max_len, then per nonzero symbol varint sym_delta and varint
@@ -106,3 +113,76 @@ class BitEncoder:
                 self._len -= min(8, self._len)
             self._val = 0
         return bytes(self.out)
+
+
+class BitDecoder:
+    """MSB-first bit reader mirroring BitEncoder.
+
+    The reference reads 4 input bytes whenever fewer than 32 bits are
+    staged, which can run past the logical payload end (into caller-provided
+    slack); the input is zero-padded here to reproduce that.
+    """
+
+    __slots__ = ("inp", "pos", "_val", "_len")
+
+    def __init__(self, data: bytes):
+        self.inp = bytes(data) + b"\x00" * 8
+        self.pos = 0
+        self._val = 0
+        self._len = 0
+
+    def _reserve32(self) -> None:
+        if self._len < 32:
+            word = int.from_bytes(self.inp[self.pos : self.pos + 4], "big")
+            self._val = ((self._val << 32) | word) & _MASK64
+            self._len += 32
+            self.pos += 4
+
+    def _peek(self, nbits: int) -> int:
+        return (self._val >> (self._len - nbits)) & ((1 << nbits) - 1)
+
+    def _skip(self, nbits: int) -> None:
+        self._len -= nbits
+
+    def decode_raw_bits(self, nbits: int) -> int:
+        self._reserve32()
+        v = self._peek(nbits)
+        self._skip(nbits)
+        return v
+
+    def decode_varint(self) -> int:
+        v = 0
+        shift = 0
+        while True:
+            self._reserve32()
+            bits = self._peek(2)
+            self._skip(2)
+            v |= (bits & 0b01) << shift
+            shift += 1
+            if bits <= 0b01:
+                break
+            if shift > 62:  # corrupt stream: unbounded continuation run
+                raise ValueError("varint overflow")
+        return v
+
+    def decode_huffman_sym(self, decoding) -> int:
+        """decoding is a HuffmanDecoding (LUT over max_code_len bits)."""
+        self._reserve32()
+        peeked = self._peek(decoding.max_code_len) if decoding.max_code_len else 0
+        sym, code_len = decoding.lut[peeked]
+        self._skip(code_len)
+        return sym
+
+    def decode_huffman_table(self):
+        """(code lengths, max code length); the list may be shorter than
+        the symbol space, missing tail symbols have length 0 (reference
+        src/coder.rs:125-142)."""
+        max_code_len = self.decode_varint()
+        code_lens = []
+        while True:
+            sym_delta = self.decode_varint()
+            if sym_delta == 0:
+                break
+            code_lens.extend([0] * (sym_delta - 1))
+            code_lens.append(max_code_len - self.decode_varint())
+        return code_lens, max_code_len

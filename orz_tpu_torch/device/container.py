@@ -2,19 +2,18 @@
 
 ``torch_encode`` mirrors ``orz_tpu/device/container.py`` ``tpu_encode``:
 segments stream through the port's batched chain, ``batch`` at a time,
-into the ORZT container (``device/pcontainer.py``).  ``torch_decode``
-mirrors ``tpu_decode``: each segment goes through the native C++ decoder
-built from ``csrc/otz_core.cpp`` at the repository root (the loader below
-is a copy of ``orz_tpu/native/otz.py``), in parallel threads.
+into the ORZT container (``device/pcontainer.py``; the framing is
+``pcontainer.py``'s).  ``torch_decode`` mirrors ``tpu_decode``: each
+segment goes through the native C++ decoder built from
+``csrc/otz_core.cpp`` at the repository root (the loader below is a copy
+of ``orz_tpu/native/otz.py``), in parallel threads.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import io
 import os
-import subprocess
 import threading
 
 import numpy as np
@@ -22,7 +21,9 @@ import torch
 
 from orz_tpu_torch.device.batch import encode_segments_batch
 from orz_tpu_torch.device.host import _bucket_capacity
-from orz_tpu_torch.device.pcontainer import TPU_MAGIC, pipe_decode, pipe_encode
+from orz_tpu_torch.device.pcontainer import pipe_encode
+from orz_tpu_torch.native import build_library
+from orz_tpu_torch.pcontainer import TPU_MAGIC, pipe_decode
 from orz_tpu_torch.progress import ProgressLogger
 from orz_tpu_torch.spec import CHUNK_INPUT_DEFAULT
 
@@ -97,29 +98,12 @@ def torch_encode_bytes(data: bytes, level: int = 2, **kw) -> bytes:
 
 # --- the native segment decoder (orz_tpu/native/otz.py) ----------------------
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_DECODER_SRC = os.path.join(_REPO_ROOT, "csrc", "otz_core.cpp")
-_BUILD_DIR = os.path.join(_REPO_ROOT, "build")
+_DECODER_SRC = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "csrc", "otz_core.cpp")
 
 _decoder = None
 _decoder_lock = threading.Lock()
-
-
-def _build_decoder() -> str:
-    with open(_DECODER_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    so_path = os.path.join(_BUILD_DIR, f"libotz_core_{digest}.so")
-    if not os.path.exists(so_path):
-        tmp = so_path + f".tmp.{os.getpid()}"
-        subprocess.run(
-            ["g++", "-O3", "-std=c++17", "-fPIC", "-shared", "-fno-exceptions",
-             "-funroll-loops", _DECODER_SRC, "-o", tmp],
-            check=True, capture_output=True,
-        )
-        os.replace(tmp, so_path)
-    return so_path
 
 
 def decoder_library():
@@ -127,7 +111,7 @@ def decoder_library():
     global _decoder
     with _decoder_lock:
         if _decoder is None:
-            lib = ctypes.CDLL(_build_decoder())
+            lib = ctypes.CDLL(build_library(_DECODER_SRC, "libotz_core"))
             lib.otz_raw_len.restype = ctypes.c_int64
             lib.otz_raw_len.argtypes = [ctypes.c_void_p, ctypes.c_int64]
             lib.otz_decode_segment.restype = ctypes.c_int64

@@ -1,8 +1,11 @@
 """OTZ format constants and knobs the port needs, copied.
 
-Copied from ``orz_tpu/device/spec.py`` and the part of
-``orz_tpu/constants.py`` it uses, so that the port imports nothing of the
-JAX package; ``tests/test_torch_host.py`` pins every copy to its
+Copied from ``orz_tpu/device/spec.py``, so that the port imports nothing
+of the JAX package; the few ORZ constants the OTZ format shares (match
+lengths, length ids, the Huffman code cap, the ROID table function) come
+from the port's copy of ``orz_tpu/constants.py``, ``constants.py``, whose
+other values (the symbol count, ``WORD_SYMBOL``, the ROID tables) differ
+from OTZ's here.  ``tests/test_torch_host.py`` pins every copy to its
 original.  The environment variables are the JAX package's own knobs, read
 at the same moment as there: ``OTZ2_SHIFTS``, ``OTZ2_NEAR``,
 ``OTZ2_ITERS``, ``OTZ2_CONFORM_CAP``, ``OTZ2_CONFORM_SHIFTS`` and
@@ -17,33 +20,13 @@ import os
 
 import numpy as np
 
-# --- orz_tpu/constants.py ----------------------------------------------------
-
-LZ_MATCH_MAX_LEN = 240
-LZ_MATCH_MIN_LEN = 4
-LZ_LENID_SIZE = 6
-HUFFMAN_MAX_CODE_LEN = 15
-
-
-def build_roid_tables(ring_size: int, group: int = 2):
-    """(enc, dec): reduced_offset -> (roid, robitlen, robits) and
-    roid -> (robase, robitlen), ``group`` ids per extra-bit level."""
-    enc = []
-    dec = []
-    base = 0
-    current_id = 0
-    while base < ring_size:
-        bit_len = current_id // group
-        dec.append((base, bit_len))
-        rest = 0
-        while rest != (1 << bit_len):
-            if base < ring_size:
-                enc.append((current_id, bit_len, rest))
-                base += 1
-            rest += 1
-        current_id += 1
-    return tuple(enc), tuple(dec)
-
+from orz_tpu_torch.constants import (  # the ORZ format's, shared by OTZ
+    HUFFMAN_MAX_CODE_LEN,
+    LZ_LENID_SIZE,
+    LZ_MATCH_MAX_LEN,
+    LZ_MATCH_MIN_LEN,
+    build_roid_tables,
+)
 
 # --- orz_tpu/device/spec.py --------------------------------------------------
 

@@ -20,7 +20,8 @@ import sys
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from orz_tpu_torch import checkpoint, cli
 from orz_tpu_torch.device import container as tc
@@ -54,7 +55,7 @@ def small_segments(monkeypatch):
               "ORZ_PER_SEGMENT"):
         monkeypatch.delenv(k, raising=False)
     for mod, name in ((tc, "torch_encode"), (jc, "tpu_encode"),
-                      (checkpoint, "checkpointed_encode")):
+                      (checkpoint, "checkpointed_torch_encode")):
         monkeypatch.setattr(mod, name, functools.partial(
             getattr(mod, name), segment_size=SEG))
 
@@ -220,9 +221,8 @@ def _host_streams(data):
     par = io.BytesIO()
     pcontainer.pencode(io.BytesIO(data), par, cfg, backend, num_streams=2,
                        segment_size=1 << 10)
-    return {"orz-compatible": (encode_bytes(data, cfg, backend),
-                               "not an ORZT stream"),
-            "ORZP": (par.getvalue(), "an ORZP stream")}
+    return {"orz-compatible": encode_bytes(data, cfg, backend),
+            "ORZP": par.getvalue()}
 
 
 def test_cli_errors(files, data, capsys):
@@ -232,23 +232,26 @@ def test_cli_errors(files, data, capsys):
     assert "invalid level: 4" in capsys.readouterr().err
     assert _run(["encode", "-s", "--checkpoint", tmp / "ck.json", src]) == 1
     assert "requires file paths" in capsys.readouterr().err
-    with pytest.raises(SystemExit):  # argparse: gpu is the only backend
-        _run(["encode", "-s", "-b", "native", src, out])
+    with pytest.raises(SystemExit):  # argparse: tpu is the JAX package's
+        _run(["encode", "-s", "-b", "tpu", src, out])
     capsys.readouterr()
 
     rng = np.random.default_rng(7)
     garbage = rng.integers(0, 256, 4096, dtype=np.uint8).tobytes()
-    cases = {"garbage": (garbage, "not an ORZT stream"),
-             "ORZT garbage": (tc.TPU_MAGIC + garbage, "decode failed"),
-             **_host_streams(data[:2000])}
+    cases = {"garbage": (garbage, "decode failed"),
+             "ORZT garbage": (tc.TPU_MAGIC + garbage, "decode failed")}
     for name, (stream, message) in cases.items():
         path = tmp / "stream.bin"
         path.write_bytes(stream)
         assert _run(["decode", "-s", path, out]) == 1, name
         err = capsys.readouterr().err
         assert message in err, (name, err)
-        if name in ("orz-compatible", "ORZP"):
-            assert cli.NOT_PORTED in err
+    # the JAX package's host streams decode under -b gpu (through auto)
+    for name, stream in _host_streams(data[:2000]).items():
+        path = tmp / "stream.bin"
+        path.write_bytes(stream)
+        assert _run(["decode", "-s", path, out]) == 0, name
+        assert out.read_bytes() == data[:2000], name
 
 
 def test_cli_stdio_subprocess_never_imports_jax(data):
@@ -283,3 +286,7 @@ def test_cli_stdio_subprocess_never_imports_jax(data):
     dec = run("decode", stdin=enc.stdout)
     assert dec.stdout == seg
     assert b"statistics:" in dec.stderr
+    # the host codec: an orz-compatible stream, decoded under -b gpu
+    enc = run("encode", "-b", "native", "-l", "1", stdin=seg)
+    assert enc.stdout[:5] not in (tc.TPU_MAGIC, b"ORZP\x01")
+    assert run("decode", stdin=enc.stdout).stdout == seg

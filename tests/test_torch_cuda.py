@@ -11,7 +11,8 @@ All outputs are integers: tolerance 0.
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from orz_tpu_torch.device.host import S, _bucket, pad_batch
 from orz_tpu_torch.kernels import (
@@ -350,3 +351,24 @@ def test_cuda_otz1_fallback_equals_cpu(batch, monkeypatch):
     assert got == tb.encode_segments_batch(segs, 2, device="cpu")
     assert got[0] == tb.encode_segments_batch(segs[:1], 2, rings_mode=0,
                                               device="cuda")[0]
+
+
+@pytest.mark.cuda
+def test_cli_gpu_decodes_jax_orzp(cuda, tmp_path):
+    """decode -b gpu of an ORZP file that the JAX package's native host
+    backend wrote (its host modules import no jax): through auto, on the
+    machine that holds the card."""
+    import io
+
+    from orz_tpu import cfg_from_level, pcontainer
+    from orz_tpu.native import NativeBackend
+    from orz_tpu_torch import cli
+
+    data = _data(5, 300_000)
+    par = io.BytesIO()
+    pcontainer.pencode(io.BytesIO(data), par, cfg_from_level(2),
+                       NativeBackend(), num_streams=3, segment_size=1 << 16)
+    src, out = tmp_path / "in.orzp", tmp_path / "out.bin"
+    src.write_bytes(par.getvalue())
+    assert cli.main(["decode", "-s", "-b", "gpu", str(src), str(out)]) == 0
+    assert out.read_bytes() == data

@@ -13,7 +13,8 @@ the end of src (clamped).  All outputs are integers: tolerance 0.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from orz_tpu_torch.kernels import windowed_gather as wg
 from orz_tpu_torch.tools import gather_probe

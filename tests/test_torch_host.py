@@ -5,20 +5,24 @@ names it needs, in ``orz_tpu_torch/device/host.py`` (from
 device/pipeline.py, ops/analyze.py, ops/symrank_pallas.py),
 ``orz_tpu_torch/spec.py`` (device/spec.py, constants.py),
 ``orz_tpu_torch/bitio.py`` (golden/bitio.py),
-``orz_tpu_torch/device/pcontainer.py`` and ``container.py`` (pcontainer.py,
-ioutil.py, native/otz.py), ``orz_tpu_torch/progress.py`` (progress.py) and
+``orz_tpu_torch/device/pcontainer.py``, ``pcontainer.py``, ``ioutil.py`` and
+``device/container.py`` (pcontainer.py, ioutil.py, native/otz.py),
+``orz_tpu_torch/progress.py`` (progress.py) and
 ``orz_tpu_torch/checkpoint.py`` (checkpoint.py's sidecar).  These tests pin
-each copy to its original.
+each copy to its original; ``tests/test_torch_hostcodec.py`` pins the host
+codecs (cfg, constants, golden, native, the orz and ORZP containers).
 """
 
 import io
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from orz_tpu.golden.bitio import BitEncoder
-from orz_tpu_torch import bitio
+from orz_tpu_torch import bitio, ioutil
+from orz_tpu_torch import pcontainer as hpc
 from orz_tpu_torch import spec as tspec
 from orz_tpu_torch.device import host
 from orz_tpu_torch.device import pcontainer as tpc
@@ -197,20 +201,20 @@ def test_framing_matches_original():
     for seg_size, bsz in ((1000, 3), (4096, 1), (20_000, 4)):
         ours, theirs = io.BytesIO(), io.BytesIO()
         tpc.pipe_encode(io.BytesIO(data), ours, batch, fake_encode,
-                        tpc.TPU_MAGIC, seg_size, bsz)
+                        hpc.TPU_MAGIC, seg_size, bsz)
         pcontainer.pipe_encode(io.BytesIO(data), theirs, fake_encode,
                                pcontainer.TPU_MAGIC, seg_size, bsz,
                                encode_batch=batch, batch_size=bsz)
         assert ours.getvalue() == theirs.getvalue()
         back = io.BytesIO()
-        tpc.pipe_decode(io.BytesIO(ours.getvalue()), back,
-                        lambda p: p[:-1][::-1], tpc.TPU_MAGIC, 2)
+        hpc.pipe_decode(io.BytesIO(ours.getvalue()), back,
+                        lambda p: p[:-1][::-1], hpc.TPU_MAGIC, 2)
         assert back.getvalue() == data
     for n in (0, 1, 127, 128, 300, 1 << 23, (1 << 35) + 5):
         buf = io.BytesIO()
-        tpc.write_len(buf, n)
+        ioutil.write_len(buf, n)
         assert buf.getvalue() == encode_len_bytes(n)
-        assert tpc.read_len(io.BytesIO(buf.getvalue())) == n
+        assert ioutil.read_len(io.BytesIO(buf.getvalue())) == n
 
 
 def test_failed_batch_is_retried_per_segment():
@@ -225,10 +229,10 @@ def test_failed_batch_is_retried_per_segment():
         return seg
 
     out = io.BytesIO()
-    tpc.pipe_encode(io.BytesIO(data), out, batch, one, tpc.TPU_MAGIC, 2048, 4)
+    tpc.pipe_encode(io.BytesIO(data), out, batch, one, hpc.TPU_MAGIC, 2048, 4)
     assert calls == [2048, 2048, 1024]
     back = io.BytesIO()
-    tpc.pipe_decode(io.BytesIO(out.getvalue()), back, bytes, tpc.TPU_MAGIC, 1)
+    hpc.pipe_decode(io.BytesIO(out.getvalue()), back, bytes, hpc.TPU_MAGIC, 1)
     assert back.getvalue() == data
 
 
@@ -237,7 +241,7 @@ def test_checkpoint_sidecar_matches_original(tmp_path):
     from orz_tpu_torch.checkpoint import CheckpointState as Ours
 
     ours, theirs = tmp_path / "ours.json", tmp_path / "theirs.json"
-    state = (tpc.TPU_MAGIC, 1 << 23, 3 << 23, 123456789, 3)
+    state = (hpc.TPU_MAGIC, 1 << 23, 3 << 23, 123456789, 3)
     Ours(str(ours)).save(*state)
     CheckpointState(str(theirs)).save(*state)
     assert ours.read_text() == theirs.read_text()
@@ -272,7 +276,7 @@ def test_progress_lines_match_original(monkeypatch, is_encode):
     assert ours == lines(SimpleProgressLogger)
     assert "statistics:" in ours and "MB/s" in ours
     assert progress.SilentProgressLogger().finish(1, 1) is None
-    assert tpc.SilentProgressLogger is progress.SilentProgressLogger
+    assert hpc.SilentProgressLogger is progress.SilentProgressLogger
 
 
 def test_native_decoder_loader_matches():

@@ -17,7 +17,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from orz_tpu_torch.device.host import N_DW, S, _bucket, pad_batch
 from orz_tpu_torch.kernels import (

@@ -18,7 +18,8 @@ outputs are integers: tolerance 0.
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from orz_tpu_torch.device import batch as tb
 from orz_tpu_torch.device.container import decode_segment

@@ -6,7 +6,9 @@ Imports neither jax nor the repository's conftest, so that the card tests
 run on a machine without jax."""
 
 import numpy as np
-import torch
+import pytest
+
+torch = pytest.importorskip("torch")
 
 from orz_tpu_torch.device.host import N_DW
 from orz_tpu_torch.kernels import match_depth
