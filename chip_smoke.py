@@ -41,34 +41,54 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    at l1, at l2 with rings_mode=0 and at the l2 default (OTZ2, the default
    schedule) must equal the port's CPU encode, which the CPU tests hold to
    the JAX chain and to the sequential oracle; the same data through
-   torch_encode_bytes must round-trip through the native decoder.
+   torch_encode_bytes must round-trip through the native decoder; the
+   per-segment encoders (encode_segment_staged at l2,
+   encode_segment_device at l1) on the same segments must equal their CPU
+   encode.
 6. e2e l2 (the main path): 32 MiB through torch_encode_bytes(level=2) with
    the defaults (8 MiB segments, batch 4, 2 MiB chunks), decoded by the
    native decoder; every kernel of the encoder must have launched, no
    segment may have gone through the per-segment retry.
-7. cli: `python -m orz_tpu_torch.cli encode -b gpu -l 2 -p 4` on the
+7. staged: the per-segment staged encoder (device/pipeline.py) on the
+   first 8 MiB segment at l2: native round trip, the emissions of its
+   best-of-N pick (ok, demotions) and thr, equality with the batched e2e
+   payload when only the newest iterate was emitted, launches (every
+   encoder kernel must launch), wall time, MB/s, peak memory, and each
+   kernel's device time at B=1 from a torch.profiler trace of a warm run;
+   encode_segment_device at l1 on the segment must equal the batched
+   rings_mode=0 payload.
+8. cli: `python -m orz_tpu_torch.cli encode -b gpu -l 2 -p 4` on the
    same 32 MiB must write the e2e l2 stream, which `... cli decode` must
-   round-trip; a --checkpoint encode of the first 16 MiB must equal
-   torch_encode_bytes of those bytes and remove its sidecar; MB/s of each
-   process and of its own statistics (stderr).  Then
-   per-stage times of one 4 x 8 MiB l2 batch (FRONT, QUALITY scan,
-   QUALITY tail, MID2, BACK), read through encode_segments_batch's stage
-   hook.
-   Then the host codecs (phase_host), on the CPU of the card's machine:
-   `cli encode -b native -l 2` as an orz stream and with `-p 4` as ORZP,
-   each decoded by `-b native` and `-b gpu` to the input, MB/s over each
-   process and by its statistics, the native backend required (no golden
-   fallback); ratio_vs_orz_l2 (the port's l2 ORZT stream of the first
-   8 MiB over the native l2 orz stream); golden = native at l0 on 64 KiB;
-   benchtool's table on the first 4 MiB (one round, native), whose device
-   row must round-trip and launch every encoder kernel (counts reset just
-   before it, read just after).
-8. e2e l1: the same 32 MiB at level 1 (K1, K3 and K5 must launch).
-9. profile: one warm 4 x 8 MiB encode_segments_batch at l2 and at l1 under
+   round-trip; a --checkpoint encode of the first 16 MiB must equal the
+   ORZT framing of the staged encoder's payloads of its two segments and
+   remove its sidecar; MB/s of each process and of its own statistics
+   (stderr).
+9. parallel: len(blocks_mesh()); mesh_encode_segments_staged on the four
+   e2e segments must equal the batched e2e payloads, except the segments
+   it flags (printed with their cause), each of which must equal
+   encode_segment_staged at rings_mode 1; distributed_encode_file at
+   world 1 under NCCL (tcp://127.0.0.1, a free port) must write the e2e l2
+   stream byte for byte.  Each path with its counts reset just before it
+   and read just after; its time.
+10. host (phase_host), on the CPU of the card's machine: `cli encode -b
+   native -l 2` as an orz stream and with `-p 4` as ORZP, each decoded by
+   `-b native` and `-b gpu` to the input, MB/s over each process and by
+   its statistics, the native backend required (no golden fallback);
+   ratio_vs_orz_l2 (the port's l2 ORZT stream of the first 8 MiB over the
+   native l2 orz stream); golden = native at l0 on 64 KiB; benchtool's
+   table on the first 4 MiB (one round, native), whose device row must
+   round-trip and launch every encoder kernel (counts reset just before
+   it, read just after).
+11. stages: per-stage times of one 4 x 8 MiB l2 batch (FRONT, QUALITY
+   scan, QUALITY tail, MID2, BACK), read through encode_segments_batch's
+   stage hook.
+12. e2e l1: the same 32 MiB at level 1 (K1, K3 and K5 must launch).
+13. profile: one warm 4 x 8 MiB encode_segments_batch at l2 and at l1 under
    torch.profiler; prints the wall time, device busy time (union of
    kernel, copy and set intervals), idle share and the kernels that take
    the most device time.
 
+Each phase prints its seconds, and the run their sum.
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is the per-kernel JSON record.
 """
@@ -76,6 +96,7 @@ is the per-kernel JSON record.
 from __future__ import annotations
 
 import argparse
+import io
 import itertools
 import json
 import os
@@ -672,17 +693,18 @@ def cli(*argv) -> tuple[float, str]:
     return wall, speed[-1] if speed else "no statistics"
 
 
-def phase_cli(data: bytes, stream: bytes) -> None:
+def phase_cli(data: bytes, stream: bytes, staged0: bytes) -> None:
     """The port's command line in subprocesses, on the e2e l2 data: its
     file must equal the e2e stream and decode through the CLI; a
-    --checkpoint run on the first 16 MiB must equal torch_encode_bytes of
-    those bytes and leave no sidecar.  MB/s by the host clock around each
+    --checkpoint run on the first 16 MiB must equal the ORZT framing of the
+    staged encoder's payloads of its two segments (staged0: the first's)
+    and leave no sidecar.  MB/s by the host clock around each
     subprocess (process start, torch import and CUDA set-up included), and
     the speed of the CLI's own statistics (from the end of its start-up);
     the runs are not silent (-s) so that it prints them, to stderr."""
     import torch
 
-    from orz_tpu_torch.device import container
+    from orz_tpu_torch.device.pipeline import encode_segment_staged
 
     work = os.path.join(ROOT, "build", "smoke_cli")
     os.makedirs(work, exist_ok=True)
@@ -711,10 +733,11 @@ def phase_cli(data: bytes, stream: bytes) -> None:
     ck_s, ck_stat = cli("encode", "-b", "gpu", "-l", "2", "-p", "4",
                         "--checkpoint", path["ck.json"], path["in16.bin"],
                         path["out16.orz"])
-    if read("out16.orz") != container.torch_encode_bytes(half, level=2,
-                                                         device="cuda"):
-        raise AssertionError("cli: the --checkpoint encode differs from "
-                             "torch_encode_bytes")
+    staged = orzt_frame([staged0, encode_segment_staged(
+        half[8 * MIB:], 2, device="cuda")], 8 * MIB)
+    if read("out16.orz") != staged:
+        raise AssertionError("cli: the --checkpoint encode differs from the "
+                             "staged encoder's payloads")
     if os.path.exists(path["ck.json"]):
         raise AssertionError("cli: the --checkpoint sidecar was left behind")
     log(f"cli l2 -p 4, MB/s of the whole process (its own statistics): "
@@ -722,7 +745,7 @@ def phase_cli(data: bytes, stream: bytes) -> None:
         f"equal to the e2e stream; decode {len(data) / 1e6 / dec_s:.3f} "
         f"({dec_stat}; {dec_s:.2f} s), round trip ok; --checkpoint 16 MiB "
         f"{len(half) / 1e6 / ck_s:.3f} ({ck_stat}; {ck_s:.2f} s), equal to "
-        f"torch_encode_bytes, no sidecar left")
+        f"the staged encoder's payloads, no sidecar left")
     for p in path.values():
         if os.path.exists(p):
             os.remove(p)
@@ -854,6 +877,10 @@ def phase_host(data: bytes) -> dict:
 def phase_cpu_parity(seed: int) -> None:
     from orz_tpu_torch.device import container
     from orz_tpu_torch.device.batch import encode_segments_batch
+    from orz_tpu_torch.device.pipeline import (
+        encode_segment_device,
+        encode_segment_staged,
+    )
 
     rng = np.random.default_rng(seed)
     segs = [text_span(rng, _vocab(rng)), binary_span(rng)]
@@ -878,6 +905,17 @@ def phase_cpu_parity(seed: int) -> None:
                                  f"round-trip through the native decoder")
         log(f"cpu parity {name}: 2 x 64 KiB byte-identical to the CPU "
             f"encode, native round trip ok ({time.perf_counter() - t:.1f} s)")
+    for name, fn, level in (("encode_segment_staged l2", encode_segment_staged,
+                             2),
+                            ("encode_segment_device l1", encode_segment_device,
+                             1)):
+        t = time.perf_counter()
+        for kind, seg in zip(("text", "binary"), segs):
+            if fn(seg, level, device="cuda") != fn(seg, level, device="cpu"):
+                raise AssertionError(f"cpu parity: {name} {kind} payload "
+                                     f"differs from the CPU encode")
+        log(f"cpu parity {name}: 2 x 64 KiB byte-identical to the CPU "
+            f"encode ({time.perf_counter() - t:.1f} s)")
 
 
 def _kernel_modules() -> dict:
@@ -1051,6 +1089,202 @@ def phase_profile(data: bytes, level: int) -> None:
         log(f"  {ms:9.3f} ms {ms / total_ms:6.1%}  {name[:90]}")
 
 
+def orzt_payloads(stream: bytes) -> list[bytes]:
+    """The segment payloads of an ORZT container, in order."""
+    from orz_tpu_torch.ioutil import read_len
+
+    f = io.BytesIO(stream)
+    if f.read(5) != b"ORZT\x01":
+        raise AssertionError("not an ORZT container")
+    read_len(f)  # segment size
+    out = []
+    while (n := read_len(f)):
+        out.append(f.read(n))
+    return out
+
+
+def orzt_frame(payloads, segment_size: int) -> bytes:
+    """The ORZT container of `payloads`."""
+    from orz_tpu_torch.ioutil import write_len
+
+    f = io.BytesIO()
+    f.write(b"ORZT\x01")
+    write_len(f, segment_size)
+    for p in payloads:
+        write_len(f, len(p))
+        f.write(p)
+    write_len(f, 0)
+    return f.getvalue()
+
+
+def counted(mods: dict, fn, path_kernels, what: str):
+    """fn() with every kernel count set to 0 just before it and read just
+    after: (its result, the counts, host seconds, peak device bytes).  Fails
+    if a kernel of `path_kernels` was launched no time."""
+    import torch
+
+    torch.cuda.synchronize()
+    for mod in mods.values():
+        mod.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = {k: mod.launches for k, mod in mods.items()}
+    for k in path_kernels:
+        if launches[k] <= 0:
+            raise AssertionError(f"{what}: kernel {k} never launched")
+    return out, launches, secs, torch.cuda.max_memory_allocated()
+
+
+def phase_staged(data: bytes, l2_payloads: list[bytes]) -> bytes:
+    """The per-segment staged encoder on the first 8 MiB segment at l2 (the
+    default schedule): native round trip, the best-of-N emissions, equality
+    with the batched e2e payload where only the newest iterate was emitted,
+    launches, wall time, MB/s and peak memory, then the device time of each
+    kernel on this path from a torch.profiler trace of a warm run; and
+    encode_segment_device at l1, which must equal the batched rings_mode=0
+    payload.  Returns the staged payload."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from orz_tpu_torch.device import pipeline as tp
+    from orz_tpu_torch.device.batch import encode_segments_batch
+    from orz_tpu_torch.device.container import decode_segment
+    from orz_tpu_torch.spec import CHUNK_INPUT_DEFAULT as CI
+
+    seg = data[:8 * MIB]
+    mods = _kernel_modules()
+
+    def staged():
+        mid = tp.dispatch_segment_mid2(tp.dispatch_segment_front(
+            seg, 2, CI, "cuda"))
+        return mid["emissions"], mid["thr"], tp.finish_segment(
+            seg, tp.dispatch_segment_back(mid), CI)
+
+    (emissions, thr, payload), launches, secs, peak = counted(
+        mods, staged, ENCODER_KERNELS, "staged l2")
+    if decode_segment(payload) != seg:
+        raise AssertionError("staged l2: native decode does not round-trip")
+    same = payload == l2_payloads[0]
+    if len(emissions) == 1 and not same:
+        raise AssertionError("staged l2: only the newest iterate was emitted "
+                             "but the payload differs from the batched one")
+    log(f"staged l2 on the first 8 MiB segment: {len(payload)} bytes, ratio "
+        f"{len(payload) / len(seg):.6f}; emissions (ok, demoted) newest "
+        f"first {emissions}, thr {thr}; equal to the batched e2e payload: "
+        f"{same}; native round trip ok; launches {launches}; "
+        f"{secs:.3f} s (first run), {len(seg) / 1e6 / secs:.3f} MB/s, peak "
+        f"device memory {peak / 2**30:.3f} GiB")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        if staged()[2] != payload:
+            raise AssertionError("staged l2: a second run differs")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    dev = device_events(prof, "smoke_profile_staged.json")
+    per = {}
+    for e in dev:
+        for k in ("match_depth_kernel", "match_depth_masked_kernel",
+                  "fence_walk_kernel", "symrank_kernel"):
+            if k in e["name"]:
+                n, ms = per.get(k, (0, 0.0))
+                per[k] = (n + 1, ms + e["dur"] / 1e3)
+    busy = sum(e["dur"] for e in dev) / 1e3
+    log(f"staged l2 warm run (profiled): {wall:.3f} s, "
+        f"{len(seg) / 1e6 / wall:.3f} MB/s, sum of device events "
+        f"{busy:.1f} ms; kernels at B=1: " + ", ".join(
+            f"{k} {n} launches {ms:.3f} ms ({ms / n:.3f} ms each)"
+            for k, (n, ms) in per.items()))
+
+    want = encode_segments_batch([seg], 1, device="cuda")[0]
+    got, launches, secs, _ = counted(
+        mods, lambda: tp.encode_segment_device(seg, 1, device="cuda"),
+        ["match_depth", "fence_walk", "symrank"], "device l1")
+    if got != want:
+        raise AssertionError("encode_segment_device l1 differs from the "
+                             "batched rings_mode=0 payload")
+    log(f"encode_segment_device l1 on the first 8 MiB segment: equal to the "
+        f"batched rings_mode=0 payload, launches {launches}, {secs:.3f} s")
+    return payload
+
+
+def phase_parallel(data: bytes, stream: bytes) -> None:
+    """The multi-GPU layer on the e2e data: mesh_encode_segments_staged on
+    the four segments equals the batched e2e payloads except for the
+    flagged segments, each of which equals encode_segment_staged at
+    rings_mode 1; distributed_encode_file at world 1 under NCCL writes the
+    e2e l2 stream.  Counts reset just before each and read just after."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from orz_tpu_torch.device.pipeline import encode_segment_staged
+    from orz_tpu_torch.parallel import (
+        blocks_mesh,
+        distributed,
+        mesh_encode_segments_staged,
+    )
+
+    mesh = blocks_mesh()
+    log(f"parallel: len(blocks_mesh()) = {len(mesh)} ({card_line()})")
+    segs = [data[i * 8 * MIB:(i + 1) * 8 * MIB] for i in range(4)]
+    want = orzt_payloads(stream)
+    mods = _kernel_modules()
+    flagged = []
+    got, launches, secs, peak = counted(
+        mods, lambda: mesh_encode_segments_staged(segs, 2, mesh=mesh,
+                                                  flagged=flagged),
+        ENCODER_KERNELS, "mesh")
+    idx = {i for i, _ in flagged}
+    for i, (seg, p, w) in enumerate(zip(segs, got, want)):
+        if i in idx:
+            if p != encode_segment_staged(seg, 2, rings_mode=1,
+                                          device="cuda"):
+                raise AssertionError(f"mesh: flagged segment {i} differs "
+                                     f"from encode_segment_staged")
+        elif p != w:
+            raise AssertionError(f"mesh: segment {i} differs from the "
+                                 f"batched e2e payload")
+    log(f"mesh_encode_segments_staged, 4 x 8 MiB over {len(mesh)} device(s): "
+        f"{secs:.3f} s, {len(data) / 1e6 / secs:.3f} MB/s, peak device "
+        f"memory {peak / 2**30:.3f} GiB, launches {launches}; flagged "
+        f"{len(flagged)} {flagged}, each equal to encode_segment_staged; "
+        f"the others equal to the batched e2e payloads")
+
+    work = os.path.join(ROOT, "build", "smoke_parallel")
+    os.makedirs(work, exist_ok=True)
+    src, out = os.path.join(work, "in.bin"), os.path.join(work, "out.orz")
+    with open(src, "wb") as f:
+        f.write(data)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.maybe_initialize("cuda", f"tcp://127.0.0.1:{port}", 1, 0)
+    try:
+        backend = dist.get_backend()
+        _, launches, secs, _ = counted(
+            mods, lambda: distributed.distributed_encode_file(src, out, 2),
+            ENCODER_KERNELS, "distributed")
+    finally:
+        dist.destroy_process_group()
+    with open(out, "rb") as f:
+        if f.read() != stream:
+            raise AssertionError("distributed_encode_file differs from the "
+                                 "e2e l2 stream")
+    log(f"distributed_encode_file at world 1 under {backend}: {secs:.3f} s, "
+        f"{len(data) / 1e6 / secs:.3f} MB/s, launches {launches}, the e2e "
+        f"l2 stream byte for byte")
+    for p in (src, out):
+        os.remove(p)
+    torch.cuda.empty_cache()
+
+
 KERNEL_INFO = {
     "match_depth": ("orz_tpu_torch/csrc/match_depth.cu",
                     "orz_tpu/ops/match_pallas.py:258"),
@@ -1078,24 +1312,39 @@ def main() -> int:
     import torch
 
     torch.cuda.set_device(0)
-    phase_build()
+    seconds = {}
+
+    def phase(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t
+        log(f"phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    phase("build", phase_build)
     t = time.perf_counter()
     data = make_data(args.seed, 32 * MIB)
     log(f"data: {len(data)} bytes from seed {args.seed} "
         f"({time.perf_counter() - t:.1f} s)")
-    rec = phase_kernels(data)
-    rec["windowed_gather"] = phase_gather()  # with P1's path, the probe
-    phase_cpu_parity(args.seed)
-    launches, stream = e2e(data, 2, ENCODER_KERNELS)  # the main path
+    rec = phase("kernels", phase_kernels, data)
+    rec["windowed_gather"] = phase("gather", phase_gather)  # with the probe
+    phase("cpu parity", phase_cpu_parity, args.seed)
+    launches, stream = phase("e2e l2", e2e, data, 2,
+                             ENCODER_KERNELS)  # the main path
     for k in ENCODER_KERNELS:
         rec[k].update(launches=launches[k], library_ms=None)
-    phase_cli(data, stream)
+    staged0 = phase("staged", phase_staged, data, orzt_payloads(stream))
+    phase("cli", phase_cli, data, stream, staged0)
+    phase("parallel", phase_parallel, data, stream)
     del stream
-    phase_host(data)
-    phase_stages(data)
-    e2e(data, 1, ["match_depth", "fence_walk", "symrank"])
-    phase_profile(data, 2)
-    phase_profile(data, 1)
+    phase("host", phase_host, data)
+    phase("stages", phase_stages, data)
+    phase("e2e l1", e2e, data, 1, ["match_depth", "fence_walk", "symrank"])
+    phase("profile l2", phase_profile, data, 2)
+    phase("profile l1", phase_profile, data, 1)
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in seconds.items())
+        + f"; total {sum(seconds.values()):.1f}")
     kernels = [
         {"name": k, "route": "cuda", "source": KERNEL_INFO[k][0],
          "replaces": KERNEL_INFO[k][1], **rec[k]}

@@ -3,9 +3,14 @@
 Layout:
 
 - ``device/``: the batched encode (``batch.encode_segments_batch``: OTZ1 at
-  l0/l1, the OTZ2 default from l2), the ORZT container entry points
-  (``container.torch_encode`` / ``torch_decode``), the batched container
-  loop (``pcontainer``) and the host helpers (``host``).
+  l0/l1, the OTZ2 default from l2), the per-segment staged encode
+  (``pipeline.encode_segment_staged``, ``encode_segment_device``), the
+  ORZT container entry points (``container.torch_encode`` /
+  ``torch_decode``), the batched container loop (``pcontainer``) and the
+  host helpers (``host``).
+- ``parallel/``: a batch split over CUDA devices (``mesh``) and the
+  striped multi-process encode over ``torch.distributed``
+  (``distributed``).
 - ``ops/``: the torch bodies of the batched encoder, named after their JAX
   counterparts in ``orz_tpu/ops/batched.py`` (``batched``: FRONT, the
   analyses, MID, BACK; ``otz2``: the QUALITY steps and MID2).

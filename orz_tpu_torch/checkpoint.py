@@ -8,15 +8,12 @@ segment.  A resumed encode validates the sidecar against (magic,
 segment_size), truncates the target back to the saved offset, seeks the
 source, and continues; the sidecar is removed on success.
 
-- ``checkpointed_encode`` is the original's: a per-segment encoder on a
-  pool of ``num_streams`` threads (``pcontainer.pooled_segments``), for the
-  host backends' ORZP files.
-- ``checkpointed_torch_encode`` sends the segments through the port's
-  batched chain, ``batch`` per ``encode_segments_batch`` call, in the same
-  loop as ``torch_encode`` (``device/pcontainer.encoded_segments``).  A
-  segment's bytes do not depend on the segments that share its batch call,
-  so a fresh file, or one resumed in the middle of a batch, is
-  byte-identical to ``torch_encode``'s.
+``checkpointed_encode`` is the original's: a per-segment encoder on a
+pool of ``num_streams`` threads (``pcontainer.pooled_segments``).  The CLI
+passes it the host backends' encoder for ORZP files, and for ORZT files
+(``-b gpu``) the per-segment staged encoder
+(``device/pipeline.encode_segment_staged``) on 8 MiB segments, as
+``orz_tpu/cli.py`` does with ``-b tpu``.
 
     python -m orz_tpu_torch.cli encode [-b gpu|native|golden|auto] --checkpoint STATE.json in out
 """
@@ -25,14 +22,9 @@ from __future__ import annotations
 
 import json
 import os
-from typing import TYPE_CHECKING
-
 from orz_tpu_torch.ioutil import CountRead, write_len
-from orz_tpu_torch.pcontainer import TPU_MAGIC, pooled_segments
+from orz_tpu_torch.pcontainer import pooled_segments
 from orz_tpu_torch.progress import ProgressLogger, SilentProgressLogger
-
-if TYPE_CHECKING:
-    import torch
 
 _FORMAT = 1
 
@@ -137,34 +129,4 @@ def checkpointed_encode(
         source_path, target_path, checkpoint_path, magic, segment_size,
         lambda source: pooled_segments(source, encode_segment, segment_size,
                                        num_streams),
-        progress)
-
-
-def checkpointed_torch_encode(
-    source_path: str,
-    target_path: str,
-    checkpoint_path: str,
-    level: int = 2,
-    batch: int | None = None,  # default: device/container.DEFAULT_BATCH
-    segment_size: int | None = None,  # default: device/container's
-    progress: ProgressLogger | None = None,
-    device: str | torch.device = "cuda",
-) -> None:
-    """``torch_encode`` from one file into another with segment-granular
-    resume through the sidecar at `checkpoint_path`.  The device modules
-    are imported here: the host path loads no torch."""
-    from orz_tpu_torch.device.container import (
-        DEFAULT_BATCH,
-        DEFAULT_SEGMENT_SIZE,
-        segment_encoders,
-    )
-    from orz_tpu_torch.device.pcontainer import encoded_segments
-
-    batch = DEFAULT_BATCH if batch is None else batch
-    segment_size = segment_size or DEFAULT_SEGMENT_SIZE
-    _checkpointed(
-        source_path, target_path, checkpoint_path, TPU_MAGIC, segment_size,
-        lambda source: encoded_segments(
-            source, *segment_encoders(level, segment_size, device=device),
-            segment_size, batch),
         progress)

@@ -18,7 +18,8 @@ Paths default to stdin/stdout; progress and statistics go to stderr.
   torch (unless they decode an ORZT stream).
 - ``--checkpoint`` (file paths only: a resume seeks both files) writes the
   multi-stream container of the backend (ORZT, or ORZP) with a
-  segment-granular resume sidecar.
+  segment-granular resume sidecar; under ``-b gpu`` each 8 MiB segment goes
+  through the per-segment staged encoder, ``-p N`` (default 2) at a time.
 - decode reads all three streams, told apart by their first bytes: ORZT
   through the native OTZ decoder, ORZP and orz-compatible streams through
   the host backend (``auto`` under ``-b gpu``, as ``-b tpu`` does in the
@@ -102,18 +103,28 @@ def _parser() -> argparse.ArgumentParser:
 
 def _checkpointed_encode(args, backend, logger, device) -> None:
     """encode --checkpoint, which opens the files itself: a resume must
-    find the target as the crashed run left it."""
+    find the target as the crashed run left it.  Each segment is encoded
+    on its own, -p N (default 2) at a time: under -b gpu by the staged
+    encoder into ORZT, as ``orz_tpu/cli.py`` does under -b tpu."""
     if backend == "gpu":
-        checkpoint.checkpointed_torch_encode(
-            args.ipath, args.opath, args.checkpoint, level=args.level,
-            batch=args.parallel or 2, progress=logger, device=device)
+        from orz_tpu_torch.device import container as device_container
+        from orz_tpu_torch.device.pipeline import encode_segment_staged
+        from orz_tpu_torch.spec import CHUNK_INPUT_DEFAULT
+
+        level = args.level
+        encode_segment = (lambda seg: encode_segment_staged(
+            seg, level, CHUNK_INPUT_DEFAULT, device=device))
+        magic = pcontainer.TPU_MAGIC
+        segment_size = device_container.DEFAULT_SEGMENT_SIZE
     else:
         cfg = cfg_from_level(args.level)
-        checkpoint.checkpointed_encode(
-            args.ipath, args.opath,
-            lambda seg: container.encode_bytes(seg, cfg, backend),
-            pcontainer.PARALLEL_MAGIC, pcontainer.DEFAULT_SEGMENT_SIZE,
-            args.parallel or 2, args.checkpoint, logger)
+        encode_segment = (lambda seg:
+                          container.encode_bytes(seg, cfg, backend))
+        magic = pcontainer.PARALLEL_MAGIC
+        segment_size = pcontainer.DEFAULT_SEGMENT_SIZE
+    checkpoint.checkpointed_encode(
+        args.ipath, args.opath, encode_segment, magic, segment_size,
+        args.parallel or 2, args.checkpoint, logger)
 
 
 def _encode(args, backend, fin, fout, logger, device) -> None:

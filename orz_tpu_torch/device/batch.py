@@ -8,8 +8,13 @@ walk) -> one host sync for the item bucket -> MID (item fields) -> BACK
 FRONT -> QUALITY (the masked re-parse schedule and the conform analyses of
 its last two iterates) -> one fetch of both iterates' item counts -> MID2
 (conform, repair, emit, the best-of-2 pick) -> BACK.  A segment whose
-repair failed is re-encoded through the OTZ1 MID and BACK from its FRONT
-outputs, at B=1.  Payloads are byte-identical to the JAX chain's.
+repair failed is re-encoded through the per-segment OTZ1 MID and BACK
+(``device/pipeline.py``) from its FRONT outputs.  As in JAX, a batch that
+holds an empty segment, or whose symrank rounds past the first C_MID
+contexts exceed ``R_CAP_MAX`` in some segment (the skew check after MID or
+MID2), goes whole through the per-segment staged encoder
+``pipeline.encode_segment_staged``.  Payloads are byte-identical to the JAX
+chain's.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from orz_tpu_torch.bitio import BitEncoder
+from orz_tpu_torch.device import host
 from orz_tpu_torch.device.host import (
     _FETCH_GRANULE,
     _bucket,
@@ -95,23 +101,26 @@ def m2_cap_for(ni_max: int) -> int:
     return _bucket(ni_max + max(ni_max // 4, 4096), 1 << 14, 2)
 
 
+def emit_iterate(bufs, seg_lens, it, m2_cap: int):
+    """Conform, repair and emit one iterate ``it`` = (starts, n_items, pk1,
+    bestq2, bestlen2) at the item cap m2_cap: (items, ok, demotions)."""
+    st, ni, pk, bq, bl = it
+    start, kind, length, q, rep0, ro, predi, n2, ok = conform_repair_b(
+        st[:, :m2_cap], ni, pk, bq, bl, bufs, seg_lens, words_mode=True)
+    items = emit_items2_b(start, kind, length, q, rep0, ro, n2, pk, bufs,
+                          seg_lens, predi=predi)
+    return items, ok, items.n_items - ni
+
+
 def mid2_body(bufs, seg_lens, it_a, it_b, m2_cap: int):
     """Conform, repair and emit the newest iterate B; when some segment's B
     failed or demoted more than max(1024, n_items/128) items (anomalous),
     emit A too and keep, per segment, B unless it failed or A demoted
     fewer.  Returns (items, ok, r1, rounds, dem_a, dem_b)."""
-
-    def emit_one(st, ni, pk, bq, bl):
-        start, kind, length, q, rep0, ro, predi, n2, ok = conform_repair_b(
-            st[:, :m2_cap], ni, pk, bq, bl, bufs, seg_lens, words_mode=True)
-        items = emit_items2_b(start, kind, length, q, rep0, ro, n2, pk, bufs,
-                              seg_lens, predi=predi)
-        return items, ok, items.n_items - ni
-
-    items_b, ok_b, dem_b = emit_one(*it_b)
+    items_b, ok_b, dem_b = emit_iterate(bufs, seg_lens, it_b, m2_cap)
     thr = torch.clamp(it_b[1] >> 7, min=1024)
     if bool((~ok_b | (dem_b > thr)).any()):  # anomalous
-        items_a, ok_a, dem_a = emit_one(*it_a)
+        items_a, ok_a, dem_a = emit_iterate(bufs, seg_lens, it_a, m2_cap)
         use_b = ok_b & ((dem_b <= thr) | ~ok_a | (dem_b <= dem_a))
         items = type(items_b)(*(
             torch.where(use_b.view((-1,) + (1,) * (a.dim() - 1)), b, a)
@@ -123,11 +132,28 @@ def mid2_body(bufs, seg_lens, it_a, it_b, m2_cap: int):
     return items, ok, r1, rounds, dem_a, dem_b
 
 
-def _empty_payload(chunk_input: int) -> bytes:
-    enc = BitEncoder()
-    enc.encode_varint(0)
-    enc.encode_varint(chunk_input)
-    return enc.finish()
+def without_failed(items, ok):
+    """`items` with n_items 0 in the segments whose repair failed: their
+    item count may pass the item cap, and BACK's output for them is
+    dropped."""
+    return items._replace(n_items=torch.where(ok, items.n_items, 0))
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """`device` as a torch.device; a CUDA device without CUDA raises (no
+    entry point carries on on the CPU unless asked)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: CUDA device requested but "
+                           f"torch.cuda.is_available() is false")
+    return device
+
+
+def skewed(r1, rounds) -> bool:
+    """JAX's symrank skew check: some segment's rounds past the first C_MID
+    contexts exceed R_CAP_MAX (host syncs r1 and rounds)."""
+    r1_h, r_h = torch.stack([r1, rounds]).cpu().numpy()
+    return bool(((r_h - r1_h) > host.R_CAP_MAX).any())
 
 
 def _run(name: str, fn):
@@ -135,9 +161,8 @@ def _run(name: str, fn):
     return fn()
 
 
-def _back_and_fetch(items, chunk_input: int, c_max: int):
-    """BACK, then one fetch of meta and of the payload words it needs."""
-    out = back_body_b(items, chunk_input, c_max)
+def fetch_out(out):
+    """One fetch of BACK's meta and of the payload words it needs."""
     metas = out.meta.cpu().numpy()
     total_words = int(metas[:, 3].max())
     k_fetch = min(out.words.shape[1],
@@ -145,28 +170,13 @@ def _back_and_fetch(items, chunk_input: int, c_max: int):
     return metas, out.words[:, :k_fetch].cpu().numpy().astype(np.uint32)
 
 
-def _assemble(data: bytes, meta, words, chunk_input: int,
-              rings_mode: int) -> bytes:
+def assemble(data: bytes, meta, words, chunk_input: int,
+             rings_mode: int) -> bytes:
     enc = BitEncoder()
     enc.encode_varint(len(data))
     enc.encode_varint(chunk_input)
     return assemble_segment_np(enc, meta, words, len(data), chunk_input,
                                rings_mode=rings_mode)
-
-
-def encode_otz1(datas, front, seg_lens, chunk_input: int, c_max: int,
-                stage=_run) -> list[bytes]:
-    """OTZ1 MID and BACK from FRONT's outputs ``front`` = (starts, n_items,
-    pk1, bestq, bestro, bufs): the rings_mode=0 path, and the fallback of
-    an OTZ2 segment whose repair failed (at B=1)."""
-    starts, n_items, pk1, bestq, bestro, bufs = front
-    m_cap = _bucket(max(int(n_items.max()), 1), 1 << 14, 2)
-    items, _r1, _rounds = stage("MID", lambda: mid_body_b(
-        starts, n_items, pk1, bestq, bestro, bufs, seg_lens, m_cap))
-    metas, words = stage("BACK", lambda: _back_and_fetch(items, chunk_input,
-                                                         c_max))
-    return [_assemble(d, metas[b], words[b], chunk_input, 0)
-            for b, d in enumerate(datas)]
 
 
 def encode_segments_batch(
@@ -184,20 +194,22 @@ def encode_segments_batch(
     from level 2); 0/1 force OTZ1/OTZ2.  Each device stage (FRONT, then
     QUALITY scan, QUALITY tail, MID2 or MID, then BACK with its fetch) runs
     as ``stage(name, fn)``, which returns ``fn()``: a caller may time it."""
+    from orz_tpu_torch.device import pipeline
+
     if not datas or any(d is None for d in datas):
         raise ValueError("encode_segments_batch needs a list of bytes")
     if rings_mode is None:
         rings_mode = int(otz2_enabled(level))
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("encode_segments_batch: CUDA device requested "
-                           "but torch.cuda.is_available() is false")
-    if any(len(d) == 0 for d in datas):  # empty segments: host-only framing
-        full = [d for d in datas if d]
-        enc = iter(encode_segments_batch(full, level, chunk_input, rings_mode,
-                                         cap, device, stage) if full else [])
-        return [next(enc) if d else _empty_payload(chunk_input)
+    device = resolve_device(device, "encode_segments_batch")
+
+    def staged():  # JAX's per-segment route for the whole batch
+        return [pipeline.encode_segment_staged(d, level, chunk_input,
+                                               rings_mode=rings_mode,
+                                               device=device)
                 for d in datas]
+
+    if any(len(d) == 0 for d in datas):
+        return staged()
     if cap is None:
         cap = _bucket_capacity(max(len(d) for d in datas))
     c_max = n_chunks_for(cap, chunk_input)
@@ -210,35 +222,46 @@ def encode_segments_batch(
     front = (starts, n_items, pk1, bestq, bestro, bufs)
     if not rings_mode:
         del mask0
-        return encode_otz1(datas, front, seg_lens, chunk_input, c_max, stage)
-
-    head, tail, c_shifts = quality_split(otz2_schedule(level))
-    plan, mask, _ = stage("QUALITY scan", lambda: quality_scan_body(
-        bufs, seg_lens, mask0, n_items, head))
-    del mask0
-    it_a, it_b = stage("QUALITY tail", lambda: quality_tail_body(
-        bufs, seg_lens, plan, starts, n_items, pk1, mask, tail, c_shifts))
-    del plan, mask
-    m2_cap = m2_cap_for(int(torch.stack([it_a[1], it_b[1]]).max()))  # fetch
-    items, ok = stage("MID2", lambda: mid2_body(bufs, seg_lens, it_a, it_b,
-                                                m2_cap))[:2]
-    del it_a, it_b
-    ok_host = ok.cpu().numpy()
+        m_cap = _bucket(max(int(n_items.max()), 1), 1 << 14, 2)
+        items, r1, rounds = stage("MID", lambda: mid_body_b(
+            starts, n_items, pk1, bestq, bestro, bufs, seg_lens, m_cap))
+        ok_host = np.ones(len(datas), dtype=bool)
+    else:
+        head, tail, c_shifts = quality_split(otz2_schedule(level))
+        plan, mask, _ = stage("QUALITY scan", lambda: quality_scan_body(
+            bufs, seg_lens, mask0, n_items, head))
+        del mask0
+        it_a, it_b = stage("QUALITY tail", lambda: quality_tail_body(
+            bufs, seg_lens, plan, starts, n_items, pk1, mask, tail,
+            c_shifts))
+        del plan, mask
+        m2_cap = m2_cap_for(int(torch.stack([it_a[1], it_b[1]]).max()))
+        items, ok, r1, rounds = stage("MID2", lambda: mid2_body(
+            bufs, seg_lens, it_a, it_b, m2_cap))[:4]
+        del it_a, it_b
+        items = without_failed(items, ok)
+        ok_host = ok.cpu().numpy()
+    if skewed(r1, rounds):
+        del front, items
+        return staged()
     if ok_host.all():
         del front, starts, pk1, bestq, bestro
-    metas, words = stage("BACK", lambda: _back_and_fetch(items, chunk_input,
-                                                         c_max))
+    metas, words = stage("BACK", lambda: fetch_out(
+        back_body_b(items, chunk_input, c_max)))
     del items
 
     global otz1_fallbacks
     payloads = []
     for b, data in enumerate(datas):
         if ok_host[b]:
-            payloads.append(_assemble(data, metas[b], words[b], chunk_input,
-                                      rings_mode))
-        else:  # repair failed: this segment's OTZ1 encode
+            payloads.append(assemble(data, metas[b], words[b], chunk_input,
+                                     rings_mode))
+        else:  # repair failed: this segment's per-segment OTZ1 encode
             otz1_fallbacks += 1
-            payloads += encode_otz1(
-                [data], tuple(t[b:b + 1] for t in front),
-                seg_lens[b:b + 1], chunk_input, c_max, stage)
+            state = pipeline.segment_state(  # MID needs no FRONT mask
+                data, level, chunk_input, c_max, seg_lens[b:b + 1],
+                tuple(t[b:b + 1] for t in front) + (None,))
+            payloads.append(pipeline.finish_segment(
+                data, pipeline.dispatch_segment_back(
+                    pipeline.dispatch_segment_mid(state)), chunk_input))
     return payloads

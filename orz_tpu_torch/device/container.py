@@ -3,7 +3,11 @@
 ``torch_encode`` mirrors ``orz_tpu/device/container.py`` ``tpu_encode``:
 segments stream through the port's batched chain, ``batch`` at a time,
 into the ORZT container (``device/pcontainer.py``; the framing is
-``pcontainer.py``'s).  ``torch_decode`` mirrors ``tpu_decode``: each
+``pcontainer.py``'s).  A batch call that fails is retried segment by
+segment through the per-segment staged encoder
+(``device/pipeline.encode_segment_staged``), and ``ORZ_PER_SEGMENT=1``
+sends every segment there, ``batch`` threads on the one device, as JAX
+does.  ``torch_decode`` mirrors ``tpu_decode``: each
 segment goes through the native C++ decoder built from
 ``csrc/otz_core.cpp`` at the repository root (the loader below is a copy
 of ``orz_tpu/native/otz.py``), in parallel threads.
@@ -19,9 +23,11 @@ import threading
 import numpy as np
 import torch
 
+from orz_tpu_torch import pcontainer
 from orz_tpu_torch.device.batch import encode_segments_batch
 from orz_tpu_torch.device.host import _bucket_capacity
 from orz_tpu_torch.device.pcontainer import pipe_encode
+from orz_tpu_torch.device.pipeline import encode_segment_staged
 from orz_tpu_torch.native import build_library
 from orz_tpu_torch.pcontainer import TPU_MAGIC, pipe_decode
 from orz_tpu_torch.progress import ProgressLogger
@@ -30,8 +36,9 @@ from orz_tpu_torch.spec import CHUNK_INPUT_DEFAULT
 DEFAULT_SEGMENT_SIZE = 1 << 23  # 8 MiB
 DEFAULT_BATCH = 4  # segments per batched device call
 
-# Segments re-encoded one at a time by pipe_encode's failure recovery (a
-# failed batch call) since the last reset; a healthy run leaves it at 0.
+# Segments re-encoded one at a time through the staged encoder by
+# pipe_encode's failure recovery (a failed batch call) since the last
+# reset; a healthy run leaves it at 0.
 segment_retries = 0
 
 
@@ -39,9 +46,9 @@ def segment_encoders(level: int = 2, segment_size: int = DEFAULT_SEGMENT_SIZE,
                      chunk_input: int = CHUNK_INPUT_DEFAULT,
                      rings_mode: int | None = None,
                      device: str | torch.device = "cuda"):
-    """(encode_batch, encode_one) of the batched chain, for
-    ``pipe_encode``'s loop: a batch of full segments shares the bucket of
-    `segment_size`; encode_one is the per-segment retry (B=1)."""
+    """(encode_batch, encode_one) for ``pipe_encode``'s loop: a batch of
+    full segments shares the bucket of `segment_size` on the batched chain;
+    encode_one is the per-segment retry, through the staged encoder."""
     cap = _bucket_capacity(segment_size)
 
     def encode_batch(segs):
@@ -55,8 +62,8 @@ def segment_encoders(level: int = 2, segment_size: int = DEFAULT_SEGMENT_SIZE,
     def encode_one(seg):
         global segment_retries
         segment_retries += 1
-        return encode_segments_batch([seg], level, chunk_input,
-                                     rings_mode=rings_mode, device=device)[0]
+        return encode_segment_staged(seg, level, chunk_input,
+                                     rings_mode=rings_mode, device=device)
 
     return encode_batch, encode_one
 
@@ -76,7 +83,9 @@ def torch_encode(
     """Stream-encode into the ORZT container, `batch` segments per device
     call; the arguments are ``tpu_encode``'s, and `num_streams` is an alias
     for `batch` (pass one of the two).  rings_mode: None = the level's
-    default (OTZ2 from level 2); 0/1 force OTZ1/OTZ2."""
+    default (OTZ2 from level 2); 0/1 force OTZ1/OTZ2.  With
+    ``ORZ_PER_SEGMENT=1`` each segment goes through the staged encoder
+    instead, `batch` of them in flight on as many threads."""
     if num_streams is not None:
         if batch is not None and batch != num_streams:
             raise ValueError(f"num_streams={num_streams} and batch={batch}: "
@@ -84,6 +93,14 @@ def torch_encode(
         batch = num_streams
     if batch is None:
         batch = DEFAULT_BATCH
+    if os.environ.get("ORZ_PER_SEGMENT") == "1":
+        pcontainer.pipe_encode(
+            source, target,
+            lambda seg: encode_segment_staged(seg, level, chunk_input,
+                                              rings_mode=rings_mode,
+                                              device=device),
+            TPU_MAGIC, segment_size, batch, progress)
+        return
     pipe_encode(source, target,
                 *segment_encoders(level, segment_size, chunk_input,
                                   rings_mode, device),

@@ -4,7 +4,9 @@ Replaces ``orz_tpu/ops/symrank_pallas.py`` ``_phase_call`` as driven by
 ``orz_tpu/ops/batched.py`` ``symrank_pallas_b``: per segment, items are
 grouped by context with a stable sort (as ``symrank_pallas_b`` groups them
 into rounds), and each (segment, context) walks its items in item order.
-There are no round buckets, so no ``R_CAP_MAX`` fallback either.
+There are no round buckets; the encoders mirror JAX's skew check against
+``R_CAP_MAX`` all the same (``device/batch.py``, ``device/pipeline.py``),
+so that a skewed segment takes JAX's route.
 
 Inputs ``symbol``, ``sr_unlikely``, ``sr_ctx`` (B, m), ``n_items`` (B,),
 ``init_perm`` (B, S) (the census order); output ``coded`` (B, m) int32,

@@ -8,8 +8,11 @@ held to ``python -m orz_tpu.cli encode -b tpu``'s at l1 and at l2 with
 which ``tests/test_torch_l2.py`` holds to the JAX chain); they decode
 through the CLI.  Segments are cut to SEG = 32 KiB in both CLIs, so three
 full segments at ``-p 2`` make two batches of one (B=2, cap 1<<15) shape
-bucket.  A ``--checkpoint`` encode, fresh or resumed after a crash, is
-byte-identical to the plain encode.  All outputs are bytes: tolerance 0.
+bucket.  A ``--checkpoint`` encode (each segment through the staged
+encoder, as ``-b tpu --checkpoint`` does), fresh or resumed after a crash,
+is byte-identical at l1 to the plain encode, and at l2 (on SEG2 = 4 KiB
+segments, one JAX program set) to ``python -m orz_tpu.cli encode -b tpu
+--checkpoint``'s file.  All outputs are bytes: tolerance 0.
 """
 
 import functools
@@ -25,12 +28,15 @@ torch = pytest.importorskip("torch")
 
 from orz_tpu_torch import checkpoint, cli
 from orz_tpu_torch.device import container as tc
+from orz_tpu_torch.device import pipeline as tp
 from tests.conftest import make_binary_like, make_text_like
 
 torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEG = 1 << 15
+SEG2 = 1 << 12  # the l2 --checkpoint cases' segments
+SCHEDULE = "96x1,384x2"
 
 
 @pytest.fixture(scope="module")
@@ -46,18 +52,45 @@ def files(tmp_path, data):
     return src, tmp_path
 
 
+def _segments(monkeypatch, seg: int) -> None:
+    """seg-byte segments in both CLIs' encode paths, --checkpoint's too."""
+    from orz_tpu.device import container as jc
+
+    for mod, name in ((tc, "torch_encode"), (jc, "tpu_encode")):
+        monkeypatch.setattr(mod, name, functools.partial(
+            getattr(mod, name), segment_size=seg))
+    monkeypatch.setattr(tc, "DEFAULT_SEGMENT_SIZE", seg)
+    monkeypatch.setattr(jc, "DEFAULT_SEGMENT_SIZE", seg)
+
+
 @pytest.fixture
 def small_segments(monkeypatch):
     """SEG-byte segments in both CLIs' encode paths."""
-    from orz_tpu.device import container as jc
-
     for k in ("OTZ2", "OTZ2_SCHEDULE", "OTZ2_ITERS", "OTZ2_SHIFTS",
               "ORZ_PER_SEGMENT"):
         monkeypatch.delenv(k, raising=False)
-    for mod, name in ((tc, "torch_encode"), (jc, "tpu_encode"),
-                      (checkpoint, "checkpointed_torch_encode")):
-        monkeypatch.setattr(mod, name, functools.partial(
-            getattr(mod, name), segment_size=SEG))
+    _segments(monkeypatch, SEG)
+
+
+@pytest.fixture(scope="module")
+def jax_checkpoint_l2(data, tmp_path_factory):
+    """JAX's ``encode -b tpu -l 2 --checkpoint`` file of data2 (three SEG2
+    segments and a short one), and data2."""
+    from orz_tpu.cli import main as jax_main
+
+    data2 = data[:3 * SEG2] + data[:1000]
+    tmp = tmp_path_factory.mktemp("jax_checkpoint")
+    src, out = tmp / "in.bin", tmp / "out.orz"
+    src.write_bytes(data2)
+    with pytest.MonkeyPatch.context() as mp:
+        for k in ("OTZ2", "OTZ2_ITERS", "OTZ2_SHIFTS", "ORZ_PER_SEGMENT"):
+            mp.delenv(k, raising=False)
+        mp.setenv("OTZ2_SCHEDULE", SCHEDULE)
+        _segments(mp, SEG2)
+        assert jax_main(["encode", "-s", "-l", "2", "-b", "tpu", "-p", "2",
+                         "--checkpoint", str(tmp / "ck.json"), str(src),
+                         str(out)]) == 0
+    return out.read_bytes(), data2
 
 
 def _run(argv) -> int:
@@ -130,6 +163,19 @@ class _Crash(BaseException):
     """A kill: not caught by the batch retry or by the CLI."""
 
 
+def test_checkpoint_l2_matches_jax_checkpoint(tmp_path, small_segments,
+                                              monkeypatch, jax_checkpoint_l2):
+    want, data2 = jax_checkpoint_l2
+    monkeypatch.setenv("OTZ2_SCHEDULE", SCHEDULE)
+    _segments(monkeypatch, SEG2)
+    src, out, ck = tmp_path / "in.bin", tmp_path / "out.orz", tmp_path / "c"
+    src.write_bytes(data2)
+    assert _checkpoint_run(src, out, ck, 2) == 0
+    assert out.read_bytes() == want
+    assert not ck.exists()
+    assert _decoded(out, tmp_path) == data2
+
+
 @pytest.mark.parametrize("level,at,crash_at,written", [
     pytest.param(1, "encode", 2, 2, id="encode"),
     pytest.param(1, "save", 3, 1, id="save"),
@@ -140,33 +186,41 @@ class _Crash(BaseException):
 ])
 def test_checkpoint_resume_after_crash(tmp_path, data, small_segments,
                                        monkeypatch, level, at, crash_at,
-                                       written):
-    """Three full segments and a short one at -p 2 make the batches (0, 1)
-    and (2, 3).  A crash in the second batch's encode call (resume at a
-    batch boundary), or in the sidecar save after segment 1's or segment
-    3's frame (resume in the middle of a batch, the second time at the
-    short tail): the sidecar points at the next unwritten segment, and the
-    resumed file equals the plain encode.  A resume in the middle of a
-    batch groups the segments after it otherwise than the uninterrupted run
-    did (at the tail: segment 3 alone, in its own smaller bucket), and at
-    l2 a batch also shares MID2's item cap and its anomalous-demotion
-    branch; a segment's bytes must depend on none of them."""
+                                       written, request):
+    """Three full segments and a short one, encoded one by one at -p 2 (two
+    threads).  A crash in the encode of segment 2 (its frame and those
+    after it unwritten, though segment 3 may have been encoded), or in the
+    sidecar save after segment 1's or segment 3's frame (the second time
+    at the short tail): the sidecar points at the next unwritten segment,
+    and the resumed file equals the uninterrupted one, at l1 the plain
+    encode's (SEG segments) and at l2 JAX's --checkpoint file (SEG2
+    segments)."""
     if level == 2:
-        monkeypatch.setenv("OTZ2_SCHEDULE", "96x1,384x2")
-    data = data + data[:1000]
+        want, data = request.getfixturevalue("jax_checkpoint_l2")
+        monkeypatch.setenv("OTZ2_SCHEDULE", SCHEDULE)
+        seg = SEG2
+        _segments(monkeypatch, seg)
+    else:
+        seg = SEG
+        data = data + data[:1000]
+        want = tc.torch_encode_bytes(data, level=1, batch=2,
+                                     segment_size=seg, device="cpu")
+    segments = [data[i:i + seg] for i in range(0, len(data), seg)]
+    assert len(segments) == 4 and len(set(segments)) == 4
     src, tmp = tmp_path / "in.bin", tmp_path
     src.write_bytes(data)
     out, ck = tmp / "out.orz", tmp / "state.json"
     calls = {"n": 0}
-    if at == "encode":
-        target, name = tc, "encode_segments_batch"
+    if at == "encode":  # the CLI looks the encoder up at each run
+        target, name = tp, "encode_segment_staged"
     else:  # saves: the header's, then one per segment
         target, name = checkpoint.CheckpointState, "save"
     real = getattr(target, name)
 
     def crashing(*args, **kw):
         calls["n"] += 1
-        if calls["n"] == crash_at:
+        if (args[0] == segments[crash_at] if at == "encode"
+                else calls["n"] == crash_at):
             raise _Crash("simulated kill")
         return real(*args, **kw)
 
@@ -175,13 +229,12 @@ def test_checkpoint_resume_after_crash(tmp_path, data, small_segments,
         with pytest.raises(_Crash):
             _checkpoint_run(src, out, ck, level)
     st = json.loads(ck.read_text())
-    assert st["magic"] == tc.TPU_MAGIC.hex() and st["segment_size"] == SEG
-    assert (st["n_segments"], st["src_off"]) == (written, written * SEG)
+    assert st["magic"] == tc.TPU_MAGIC.hex() and st["segment_size"] == seg
+    assert (st["n_segments"], st["src_off"]) == (written, written * seg)
     with open(out, "ab") as f:  # resume must truncate what lies past it
         f.write(b"GARBAGE-PAST-CHECKPOINT")
     assert _checkpoint_run(src, out, ck, level) == 0
-    assert out.read_bytes() == tc.torch_encode_bytes(
-        data, level=level, batch=2, segment_size=SEG, device="cpu")
+    assert out.read_bytes() == want
     assert not ck.exists()
 
 
