@@ -45,11 +45,21 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    per-segment encoders (encode_segment_staged at l2,
    encode_segment_device at l1) on the same segments must equal their CPU
    encode.
-6. e2e l2 (the main path): 32 MiB through torch_encode_bytes(level=2) with
+6. refcodec: the port's sequential oracle (orz_tpu_torch/device/refcodec.py,
+   numpy on the host) on the same 64 KiB segments: the GPU's l1 payloads
+   (rings_mode=0) must equal encode_segment_ref(seg, 1, rings_mode=0) and
+   decode through decode_segment_ref; the GPU's l2 default payloads of
+   16 KiB text and binary segments must decode through decode_segment_ref
+   and the native decoder; a small ORZT stream must round-trip through
+   torch_decode with the native decoder's loader forced to raise OSError,
+   decoder_fallbacks counting each of its segments.  Every other phase
+   must leave decoder_fallbacks at 0 (the command line's subprocesses
+   print their own count), so that the native decoder is what decoded.
+7. e2e l2 (the main path): 32 MiB through torch_encode_bytes(level=2) with
    the defaults (8 MiB segments, batch 4, 2 MiB chunks), decoded by the
    native decoder; every kernel of the encoder must have launched, no
    segment may have gone through the per-segment retry.
-7. staged: the per-segment staged encoder (device/pipeline.py) on the
+8. staged: the per-segment staged encoder (device/pipeline.py) on the
    first 8 MiB segment at l2: native round trip, the emissions of its
    best-of-N pick (ok, demotions) and thr, equality with the batched e2e
    payload when only the newest iterate was emitted, launches (every
@@ -57,20 +67,20 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    kernel's device time at B=1 from a torch.profiler trace of a warm run;
    encode_segment_device at l1 on the segment must equal the batched
    rings_mode=0 payload.
-8. cli: `python -m orz_tpu_torch.cli encode -b gpu -l 2 -p 4` on the
+9. cli: `python -m orz_tpu_torch.cli encode -b gpu -l 2 -p 4` on the
    same 32 MiB must write the e2e l2 stream, which `... cli decode` must
    round-trip; a --checkpoint encode of the first 16 MiB must equal the
    ORZT framing of the staged encoder's payloads of its two segments and
-   remove its sidecar; MB/s of each process and of its own statistics
+   remove its sidecar; each process's decoder_fallbacks must read 0; MB/s of each process and of its own statistics
    (stderr).
-9. parallel: len(blocks_mesh()); mesh_encode_segments_staged on the four
+10. parallel: len(blocks_mesh()); mesh_encode_segments_staged on the four
    e2e segments must equal the batched e2e payloads, except the segments
    it flags (printed with their cause), each of which must equal
    encode_segment_staged at rings_mode 1; distributed_encode_file at
    world 1 under NCCL (tcp://127.0.0.1, a free port) must write the e2e l2
    stream byte for byte.  Each path with its counts reset just before it
    and read just after; its time.
-10. host (phase_host), on the CPU of the card's machine: `cli encode -b
+11. host (phase_host), on the CPU of the card's machine: `cli encode -b
    native -l 2` as an orz stream and with `-p 4` as ORZP, each decoded by
    `-b native` and `-b gpu` to the input, MB/s over each process and by
    its statistics, the native backend required (no golden fallback);
@@ -79,11 +89,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    table on the first 4 MiB (one round, native), whose device row must
    round-trip and launch every encoder kernel (counts reset just before
    it, read just after).
-11. stages: per-stage times of one 4 x 8 MiB l2 batch (FRONT, QUALITY
+12. stages: per-stage times of one 4 x 8 MiB l2 batch (FRONT, QUALITY
    scan, QUALITY tail, MID2, BACK), read through encode_segments_batch's
    stage hook.
-12. e2e l1: the same 32 MiB at level 1 (K1, K3 and K5 must launch).
-13. profile: one warm 4 x 8 MiB encode_segments_batch at l2 and at l1 under
+13. e2e l1: the same 32 MiB at level 1 (K1, K3 and K5 must launch).
+14. profile: one warm 4 x 8 MiB encode_segments_batch at l2 and at l1 under
    torch.profiler; prints the wall time, device busy time (union of
    kernel, copy and set intervals), idle share and the kernels that take
    the most device time.
@@ -676,18 +686,33 @@ def phase_gather() -> dict:
             "library_ms": library_ms, "launches": launches, **bd}
 
 
+# ``python -m orz_tpu_torch.cli``, then the process's decoder_fallbacks on
+# stderr (0 where no ORZT stream was decoded: the module was not loaded)
+CLI = """import sys
+from orz_tpu_torch.cli import main
+rc = main(sys.argv[1:])
+c = sys.modules.get("orz_tpu_torch.device.container")
+print(f"decoder_fallbacks {c.decoder_fallbacks if c else 0}", file=sys.stderr)
+sys.exit(rc)
+"""
+
+
 def cli(*argv) -> tuple[float, str]:
-    """Runs ``python -m orz_tpu_torch.cli *argv``; returns its wall seconds
-    and the speed line of the statistics that it prints to stderr (timed
-    from its start-up's end)."""
+    """Runs the port's command line (``python -m orz_tpu_torch.cli *argv``,
+    through ``CLI``); returns its wall seconds and the speed line of the
+    statistics that it prints to stderr (timed from its start-up's end).
+    Fails unless the process's decoder_fallbacks reads 0."""
     t = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "orz_tpu_torch.cli", *argv],
+    res = subprocess.run([sys.executable, "-c", CLI, *argv],
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=600)
     wall = time.perf_counter() - t
     if res.returncode != 0:
         raise AssertionError(f"cli {' '.join(argv[:3])}: exit "
                              f"{res.returncode}: {res.stderr[-3000:]}")
+    if res.stderr.splitlines()[-1] != "decoder_fallbacks 0":
+        raise AssertionError(f"cli {' '.join(argv[:3])}: the native decoder "
+                             f"did not decode: {res.stderr[-300:]}")
     speed = [ln.split(":", 1)[1].strip() for ln in res.stderr.splitlines()
              if ln.strip().startswith("speed:")]
     return wall, speed[-1] if speed else "no statistics"
@@ -916,6 +941,81 @@ def phase_cpu_parity(seed: int) -> None:
                                      f"differs from the CPU encode")
         log(f"cpu parity {name}: 2 x 64 KiB byte-identical to the CPU "
             f"encode ({time.perf_counter() - t:.1f} s)")
+
+
+def phase_refcodec(seed: int) -> None:
+    """The port's sequential oracle on the cpu parity segments (the same
+    seed draws the same 64 KiB text and binary spans): GPU l1 payloads
+    equal encode_segment_ref and decode through decode_segment_ref; GPU
+    l2 default payloads of 16 KiB decode through decode_segment_ref and
+    the native decoder; torch_decode falls back to decode_segment_ref
+    when the native decoder's loader raises OSError (forced here), and
+    decoder_fallbacks counts each segment."""
+    from orz_tpu_torch.device import container
+    from orz_tpu_torch.device.batch import encode_segments_batch
+    from orz_tpu_torch.device.refcodec import (
+        decode_segment_ref,
+        encode_segment_ref,
+    )
+
+    rng = np.random.default_rng(seed)
+    segs = [text_span(rng, _vocab(rng)), binary_span(rng)]
+    kinds = ("text", "binary")
+    t = time.perf_counter()
+    got = encode_segments_batch(segs, 1, rings_mode=0, device="cuda")
+    for kind, seg, payload in zip(kinds, segs, got):
+        r = time.perf_counter()
+        if payload != encode_segment_ref(seg, 1, rings_mode=0):
+            raise AssertionError(f"refcodec: GPU l1 {kind} payload differs "
+                                 f"from encode_segment_ref")
+        e = time.perf_counter()
+        if decode_segment_ref(payload) != seg:
+            raise AssertionError(f"refcodec: decode_segment_ref of the GPU "
+                                 f"l1 {kind} payload does not round-trip")
+        log(f"refcodec l1 {kind}: {len(seg)} -> {len(payload)} bytes, GPU "
+            f"payload = encode_segment_ref ({e - r:.2f} s on the host), "
+            f"decode_segment_ref round trip ok "
+            f"({time.perf_counter() - e:.2f} s)")
+    heads = [seg[:16 << 10] for seg in segs]
+    for kind, seg, payload in zip(kinds, heads, encode_segments_batch(
+            heads, 2, device="cuda")):
+        r = time.perf_counter()
+        if decode_segment_ref(payload) != seg:
+            raise AssertionError(f"refcodec: decode_segment_ref of the GPU "
+                                 f"l2 {kind} payload does not round-trip")
+        e = time.perf_counter()
+        if container.decode_segment(payload) != seg:
+            raise AssertionError(f"refcodec: the native decoder does not "
+                                 f"round-trip the GPU l2 {kind} payload")
+        log(f"refcodec l2 {kind}: {len(seg)} -> {len(payload)} bytes, "
+            f"decode_segment_ref round trip ok ({e - r:.2f} s), native "
+            f"round trip ok")
+    small = segs[0][:20000] + segs[1][:12000]
+    stream = container.torch_encode_bytes(small, level=1,
+                                          segment_size=1 << 13,
+                                          device="cuda")
+    n_segs = -(-len(small) // (1 << 13))
+    real = container.decoder_library
+
+    def unloadable():
+        raise OSError("the native decoder's loader, forced to fail")
+
+    container.decoder_fallbacks = 0
+    container.decoder_library = unloadable
+    try:
+        back = container.torch_decode_bytes(stream)
+    finally:
+        container.decoder_library = real
+    fallbacks, container.decoder_fallbacks = container.decoder_fallbacks, 0
+    if back != small or fallbacks != n_segs:
+        raise AssertionError(f"refcodec: forced fallback decoded "
+                             f"{len(back)} of {len(small)} bytes "
+                             f"(equal: {back == small}), decoder_fallbacks "
+                             f"{fallbacks} for {n_segs} segments")
+    log(f"refcodec forced fallback: {len(small)} bytes in {n_segs} segments "
+        f"({len(stream)} bytes of ORZT) round-trip through torch_decode "
+        f"with the loader raising OSError, decoder_fallbacks {fallbacks}; "
+        f"phase {time.perf_counter() - t:.2f} s")
 
 
 def _kernel_modules() -> dict:
@@ -1314,11 +1414,17 @@ def main() -> int:
     torch.cuda.set_device(0)
     seconds = {}
 
+    from orz_tpu_torch.device import container
+
     def phase(name, fn, *a):
         t = time.perf_counter()
         out = fn(*a)
         seconds[name] = time.perf_counter() - t
         log(f"phase {name}: {seconds[name]:.1f} s")
+        if container.decoder_fallbacks:  # refcodec resets its own
+            raise AssertionError(f"{name}: decoder_fallbacks "
+                                 f"{container.decoder_fallbacks}: the "
+                                 f"native decoder did not decode")
         return out
 
     phase("build", phase_build)
@@ -1329,6 +1435,7 @@ def main() -> int:
     rec = phase("kernels", phase_kernels, data)
     rec["windowed_gather"] = phase("gather", phase_gather)  # with the probe
     phase("cpu parity", phase_cpu_parity, args.seed)
+    phase("refcodec", phase_refcodec, args.seed)
     launches, stream = phase("e2e l2", e2e, data, 2,
                              ENCODER_KERNELS)  # the main path
     for k in ENCODER_KERNELS:
@@ -1342,6 +1449,8 @@ def main() -> int:
     phase("e2e l1", e2e, data, 1, ["match_depth", "fence_walk", "symrank"])
     phase("profile l2", phase_profile, data, 2)
     phase("profile l1", phase_profile, data, 1)
+    log("decoder_fallbacks 0 after every phase but refcodec's forced one, "
+        "in this process and in each command line process")
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in seconds.items())
         + f"; total {sum(seconds.values()):.1f}")

@@ -10,7 +10,12 @@ sends every segment there, ``batch`` threads on the one device, as JAX
 does.  ``torch_decode`` mirrors ``tpu_decode``: each
 segment goes through the native C++ decoder built from
 ``csrc/otz_core.cpp`` at the repository root (the loader below is a copy
-of ``orz_tpu/native/otz.py``), in parallel threads.
+of ``orz_tpu/native/otz.py``), in parallel threads.  Where that decoder
+cannot be loaded (no g++: ``OSError``; or ``ImportError``) a segment is
+decoded by the sequential oracle ``device/refcodec.decode_segment_ref``
+instead, as ``orz_tpu/device/container.py`` ``_decode_segment`` does, and
+``decoder_fallbacks`` counts it; a failed compile and a corrupt payload
+still raise.
 """
 
 from __future__ import annotations
@@ -40,6 +45,10 @@ DEFAULT_BATCH = 4  # segments per batched device call
 # pipe_encode's failure recovery (a failed batch call) since the last
 # reset; a healthy run leaves it at 0.
 segment_retries = 0
+# Segments that torch_decode decoded with the sequential oracle because
+# the native decoder could not be loaded, since the last reset; 0 wherever
+# g++ builds csrc/otz_core.cpp.
+decoder_fallbacks = 0
 
 
 def segment_encoders(level: int = 2, segment_size: int = DEFAULT_SEGMENT_SIZE,
@@ -158,12 +167,27 @@ def decode_segment(payload: bytes, max_raw_len: int = 1 << 31) -> bytes:
     return dst.tobytes()
 
 
+_fallback_lock = threading.Lock()
+
+
+def _decode_segment(payload: bytes, max_raw_len: int = 1 << 31) -> bytes:
+    global decoder_fallbacks
+    try:
+        return decode_segment(payload, max_raw_len=max_raw_len)
+    except (OSError, ImportError):  # no toolchain: slow reference fallback
+        from orz_tpu_torch.device.refcodec import decode_segment_ref
+
+        with _fallback_lock:
+            decoder_fallbacks += 1
+        return decode_segment_ref(payload)
+
+
 def torch_decode(source, target, num_streams: int | None = None,
                  progress: ProgressLogger | None = None) -> None:
     """Decode an ORZT container, one thread per core by default."""
     if num_streams is None:
         num_streams = os.cpu_count() or 4
-    pipe_decode(source, target, decode_segment, TPU_MAGIC, num_streams,
+    pipe_decode(source, target, _decode_segment, TPU_MAGIC, num_streams,
                 progress)
 
 

@@ -6,12 +6,16 @@ lengths, length ids, the Huffman code cap, the ROID table function) come
 from the port's copy of ``orz_tpu/constants.py``, ``constants.py``, whose
 other values (the symbol count, ``WORD_SYMBOL``, the ROID tables) differ
 from OTZ's here.  ``tests/test_torch_host.py`` pins every copy to its
-original.  The environment variables are the JAX package's own knobs, read
-at the same moment as there: ``OTZ2_SHIFTS``, ``OTZ2_NEAR``,
-``OTZ2_ITERS``, ``OTZ2_CONFORM_CAP``, ``OTZ2_CONFORM_SHIFTS`` and
-``OTZ_FAR_GATE`` at import, ``OTZ2_SCHEDULE`` (with ``OTZ2_ITERS`` /
-``OTZ2_SHIFTS``) and ``OTZ2`` at each call of ``otz2_schedule`` /
-``otz2_enabled``.
+original.  The numpy model functions at the end (``cctx_all``, ``h2_all``,
+``dword_all``, ``match_key_all``) and the numpy ``min_match_len_for_ro``
+serve the sequential oracle ``device/refcodec.py``
+(``tests/test_torch_refcodec.py`` pins them); the torch price gate lives
+beside the kernels (``kernels/match_depth.py``).  The environment
+variables are the JAX package's own knobs, read at the same moment as
+there: ``OTZ2_SHIFTS``, ``OTZ2_NEAR``, ``OTZ2_ITERS``,
+``OTZ2_CONFORM_CAP``, ``OTZ2_CONFORM_SHIFTS`` and ``OTZ_FAR_GATE`` at
+import, ``OTZ2_SCHEDULE`` (with ``OTZ2_ITERS`` / ``OTZ2_SHIFTS``) and
+``OTZ2`` at each call of ``otz2_schedule`` / ``otz2_enabled``.
 """
 
 from __future__ import annotations
@@ -25,11 +29,13 @@ from orz_tpu_torch.constants import (  # the ORZ format's, shared by OTZ
     LZ_LENID_SIZE,
     LZ_MATCH_MAX_LEN,
     LZ_MATCH_MIN_LEN,
+    WORD_TABLE_SIZE,
     build_roid_tables,
 )
 
 # --- orz_tpu/device/spec.py --------------------------------------------------
 
+OTZ_MAGIC = b"OTZ1"
 PAD_FRONT = 16
 PAD_TAIL = LZ_MATCH_MAX_LEN + 32
 RING = 32766  # reachable reduced offsets (OTZ1 rings, conform cap)
@@ -47,6 +53,7 @@ NEG_EML_DEPTH = 16
 CHUNK_INPUT_DEFAULT = 1 << 21
 ROID_GROUP_BITS = 1
 FENCE = 4096
+NUM_CONTEXTS = 256  # hash1-style byte contexts
 
 # OTZ2 (item-start rings, rings_mode=1)
 OTZ2_SHIFTS = int(os.environ.get("OTZ2_SHIFTS", "96"))
@@ -86,6 +93,14 @@ FAR_RO_1 = 4094
 FAR_RO_2 = 16382
 _FAR_GATE = int(os.environ.get("OTZ_FAR_GATE", "2"))
 
+
+def min_match_len_for_ro(ro):
+    """Minimum acceptable match length given the reduced offset (numpy
+    scalars and arrays)."""
+    return (LZ_MATCH_MIN_LEN + _FAR_GATE * (ro >= FAR_RO_1)
+            + _FAR_GATE * (ro >= FAR_RO_2))
+
+
 LEVEL_CANDIDATES = {0: 4, 1: 8, 2: 32, 3: 32}
 LAZY_LEN_CAP = LZ_MATCH_MAX_LEN // 2
 ROBITS_CHEAP = 8
@@ -97,3 +112,47 @@ def candidate_depth(level: int) -> int:
 
 def n_chunks_for(raw_len: int, chunk_input: int) -> int:
     return max(1, -(-raw_len // chunk_input))
+
+
+_ALNUM = np.zeros(256, dtype=np.int32)
+for _b in range(256):
+    _ALNUM[_b] = int(chr(_b).isascii() and chr(_b).isalnum())
+
+
+# --- pure per-position model functions (numpy, vectorized over positions) ---
+
+
+def cctx_all(buf: np.ndarray) -> np.ndarray:
+    """Byte context in which each position is coded: low 7 bits of the
+    previous byte plus an is-alphanumeric bit of the byte before that."""
+    b = buf.astype(np.int32)
+    prev1 = np.roll(b, 1)
+    prev2 = np.roll(b, 2)
+    prev1[0] = 0
+    prev2[:2] = 0
+    return (prev1 & 0x7F) | (_ALNUM[prev2] << 7)
+
+
+def h2_all(buf: np.ndarray) -> np.ndarray:
+    """Word-model key AT each position x, over bytes x-2..x: 15 bits."""
+    b = buf.astype(np.int32)
+    prev1 = np.roll(b, 1)
+    prev2 = np.roll(b, 2)
+    prev1[0] = 0
+    prev2[:2] = 0
+    c_prev = (prev1 & 0x7F) | (_ALNUM[prev2] << 7)
+    return (b & 0x7F) | (c_prev << 7)
+
+
+def dword_all(buf: np.ndarray) -> np.ndarray:
+    """Little-endian u32 at each position (reads 3 bytes past the end, which
+    the tail pad covers)."""
+    b = buf.astype(np.uint32)
+    return b | np.roll(b, -1) << 8 | np.roll(b, -2) << 16 | np.roll(b, -3) << 24
+
+
+def match_key_all(buf: np.ndarray) -> np.ndarray:
+    """Candidate grouping key: context in the high 8 bits, 23-bit
+    multiplicative hash of the dword below (31 bits, a non-negative int32)."""
+    h23 = ((dword_all(buf) * np.uint32(2654435761)) >> np.uint32(8)).astype(np.int64) & 0x7FFFFF
+    return (cctx_all(buf).astype(np.int64) << 23) | h23

@@ -30,6 +30,7 @@ from orz_tpu_torch import checkpoint, cli
 from orz_tpu_torch.device import container as tc
 from orz_tpu_torch.device import pipeline as tp
 from tests.conftest import make_binary_like, make_text_like
+from torch_jax_cache import shared
 
 torch.set_num_threads(2)
 
@@ -72,25 +73,37 @@ def small_segments(monkeypatch):
     _segments(monkeypatch, SEG)
 
 
+def _jax_checkpoint_file(data2: bytes) -> bytes:
+    """JAX's ``encode -b tpu -l 2 -p 2 --checkpoint`` file of data2, with
+    SEG2-byte segments (the caller's patch)."""
+    import tempfile
+
+    from orz_tpu.cli import main as jax_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "in.bin"), os.path.join(tmp, "out.orz")
+        with open(src, "wb") as f:
+            f.write(data2)
+        assert jax_main(["encode", "-s", "-l", "2", "-b", "tpu", "-p", "2",
+                         "--checkpoint", os.path.join(tmp, "ck.json"), src,
+                         out]) == 0
+        with open(out, "rb") as f:
+            return f.read()
+
+
 @pytest.fixture(scope="module")
 def jax_checkpoint_l2(data, tmp_path_factory):
     """JAX's ``encode -b tpu -l 2 --checkpoint`` file of data2 (three SEG2
-    segments and a short one), and data2."""
-    from orz_tpu.cli import main as jax_main
-
+    segments and a short one), and data2; once per run."""
     data2 = data[:3 * SEG2] + data[:1000]
-    tmp = tmp_path_factory.mktemp("jax_checkpoint")
-    src, out = tmp / "in.bin", tmp / "out.orz"
-    src.write_bytes(data2)
     with pytest.MonkeyPatch.context() as mp:
         for k in ("OTZ2", "OTZ2_ITERS", "OTZ2_SHIFTS", "ORZ_PER_SEGMENT"):
             mp.delenv(k, raising=False)
         mp.setenv("OTZ2_SCHEDULE", SCHEDULE)
         _segments(mp, SEG2)
-        assert jax_main(["encode", "-s", "-l", "2", "-b", "tpu", "-p", "2",
-                         "--checkpoint", str(tmp / "ck.json"), str(src),
-                         str(out)]) == 0
-    return out.read_bytes(), data2
+        want = shared(tmp_path_factory, f"jax_checkpoint_seg{SEG2}",
+                      _jax_checkpoint_file, data2)
+    return want, data2
 
 
 def _run(argv) -> int:

@@ -27,6 +27,7 @@ from orz_tpu_torch.device.host import _bucket, pad_batch
 from orz_tpu_torch.ops import batched as ob
 from orz_tpu_torch.spec import CHUNK_INPUT_DEFAULT, n_chunks_for, otz2_schedule
 from tests.conftest import make_binary_like, make_text_like
+from torch_jax_cache import jax_front, shared
 
 torch.set_num_threads(2)
 
@@ -55,12 +56,11 @@ def _np(tree):
 
 
 @pytest.fixture(scope="module")
-def jax_chain(segs, schedule_env):
+def jax_chain(segs, schedule_env, tmp_path_factory):
     import jax.numpy as jnp
 
     from orz_tpu.device.batch import (
         b_back_jit,
-        b_front_jit,
         b_mid2_jit,
         b_scan_jit,
         b_tail_jit,
@@ -71,8 +71,11 @@ def jax_chain(segs, schedule_env):
 
     head, tail, c_shifts = tb.quality_split(otz2_schedule(2))
     assert (head, tail, c_shifts) == ((96,), (384, 384), 384)
-    bufs, lens = (jnp.asarray(a) for a in pad_batch(segs, CAP))
-    st, ni, pk1, bq, bro, bufs_d, mask0 = b_front_jit(bufs, lens, 32)
+    lens = jnp.asarray(pad_batch(segs, CAP)[1])
+    # b_front_jit at depth 32, shared with tests/test_torch_slice.py (the
+    # same segments): once per run
+    front = shared(tmp_path_factory, "front", jax_front, segs, CAP, 32)
+    st, ni, pk1, bq, bro, bufs_d, mask0 = (jnp.asarray(a) for a in front)
     plan, mask, ni_h = b_scan_jit(bufs_d, lens, mask0, ni, head)
     it_a, it_b = b_tail_jit(bufs_d, lens, plan, st, ni, pk1, mask, tail,
                             c_shifts)

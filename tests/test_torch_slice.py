@@ -26,6 +26,7 @@ from orz_tpu_torch.device.host import _bucket, pad_batch
 from orz_tpu_torch.ops import batched as ob
 from orz_tpu_torch.spec import CHUNK_INPUT_DEFAULT, n_chunks_for
 from tests.conftest import make_binary_like, make_text_like
+from torch_jax_cache import jax_front, shared
 
 torch.set_num_threads(2)
 
@@ -52,26 +53,34 @@ def torch_chain(segs):
     return front, (items, r1, rounds), out
 
 
-@pytest.fixture(scope="module")
-def jax_chain(segs):
+def _jax_mid_back(segs, front):
+    """b_mid_jit and b_back_jit on the JAX FRONT's outputs, as host
+    arrays."""
     import jax.numpy as jnp
 
-    from orz_tpu.device.batch import b_back_jit, b_front_jit, b_mid_jit
+    from orz_tpu.device.batch import b_back_jit, b_mid_jit
     from orz_tpu.ops.symrank_pallas import RB_BLK
 
-    bufs, lens = (jnp.asarray(a) for a in pad_batch(segs, CAP))
-    front = b_front_jit(bufs, lens, DEPTH)
-    st, ni, pk1, bq, bro, bufs_d, _ = front
+    lens = jnp.asarray(pad_batch(segs, CAP)[1])
+    st, ni, pk1, bq, bro, bufs_d, _ = (jnp.asarray(a) for a in front)
     m_cap = _bucket(int(np.asarray(ni).max()), 1 << 14, 2)
     items, r1, rounds = b_mid_jit(st, ni, pk1, bq, bro, bufs_d, lens, m_cap)
-    front = tuple(np.asarray(a) for a in front)
     mid = (tuple(np.asarray(a) for a in items), np.asarray(r1),
            np.asarray(rounds))
     r1_h, r_h = mid[1], mid[2]
     out = b_back_jit(items, CHUNK_INPUT_DEFAULT, C_MAX,
                      _bucket(max(int(r1_h.max()), 1), RB_BLK),
                      _bucket(max(int((r_h - r1_h).max()), 1), 4 * RB_BLK))
-    return front, mid, (np.asarray(out.meta), np.asarray(out.words))
+    return mid, (np.asarray(out.meta), np.asarray(out.words))
+
+
+@pytest.fixture(scope="module")
+def jax_chain(segs, tmp_path_factory):
+    """The JAX chain, once per run (its FRONT is tests/test_torch_l2.py's
+    too)."""
+    front = shared(tmp_path_factory, "front", jax_front, segs, CAP, DEPTH)
+    return (front, *shared(tmp_path_factory, "slice_mid_back", _jax_mid_back,
+                           segs, front))
 
 
 def test_front_body_matches_jax(torch_chain, jax_chain):
