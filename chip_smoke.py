@@ -59,7 +59,17 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    the defaults (8 MiB segments, batch 4, 2 MiB chunks), decoded by the
    native decoder; every kernel of the encoder must have launched, no
    segment may have gone through the per-segment retry.
-8. staged: the per-segment staged encoder (device/pipeline.py) on the
+8. inflight: 64 MiB from make_data(seed, 64 MiB), two 4 x 8 MiB batches,
+   through torch_encode_bytes at l2 and at l1, once at ORZ_INFLIGHT=1
+   and twice at 2 (two batches in flight, each slot on its own CUDA
+   stream; the second pass is the warm one), each with its counts set to
+   0 just before it and read just after: the bytes, each kernel's launches
+   and the OTZ1 fallbacks equal at 1 and 2, every encoder kernel of the
+   level launched, no per-segment retry, a native round trip; each pass's
+   MB/s and peak device memory; then one encode at each value under
+   torch.profiler: wall time, device busy time (also per stream), idle
+   share.
+9. staged: the per-segment staged encoder (device/pipeline.py) on the
    first 8 MiB segment at l2: native round trip, the emissions of its
    best-of-N pick (ok, demotions) and thr, equality with the batched e2e
    payload when only the newest iterate was emitted, launches (every
@@ -67,20 +77,20 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    kernel's device time at B=1 from a torch.profiler trace of a warm run;
    encode_segment_device at l1 on the segment must equal the batched
    rings_mode=0 payload.
-9. cli: `python -m orz_tpu_torch.cli encode -b gpu -l 2 -p 4` on the
+10. cli: `python -m orz_tpu_torch.cli encode -b gpu -l 2 -p 4` on the
    same 32 MiB must write the e2e l2 stream, which `... cli decode` must
    round-trip; a --checkpoint encode of the first 16 MiB must equal the
    ORZT framing of the staged encoder's payloads of its two segments and
    remove its sidecar; each process's decoder_fallbacks must read 0; MB/s of each process and of its own statistics
    (stderr).
-10. parallel: len(blocks_mesh()); mesh_encode_segments_staged on the four
+11. parallel: len(blocks_mesh()); mesh_encode_segments_staged on the four
    e2e segments must equal the batched e2e payloads, except the segments
    it flags (printed with their cause), each of which must equal
    encode_segment_staged at rings_mode 1; distributed_encode_file at
    world 1 under NCCL (tcp://127.0.0.1, a free port) must write the e2e l2
    stream byte for byte.  Each path with its counts reset just before it
    and read just after; its time.
-11. host (phase_host), on the CPU of the card's machine: `cli encode -b
+12. host (phase_host), on the CPU of the card's machine: `cli encode -b
    native -l 2` as an orz stream and with `-p 4` as ORZP, each decoded by
    `-b native` and `-b gpu` to the input, MB/s over each process and by
    its statistics, the native backend required (no golden fallback);
@@ -89,11 +99,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    table on the first 4 MiB (one round, native), whose device row must
    round-trip and launch every encoder kernel (counts reset just before
    it, read just after).
-12. stages: per-stage times of one 4 x 8 MiB l2 batch (FRONT, QUALITY
+13. stages: per-stage times of one 4 x 8 MiB l2 batch (FRONT, QUALITY
    scan, QUALITY tail, MID2, BACK), read through encode_segments_batch's
    stage hook.
-13. e2e l1: the same 32 MiB at level 1 (K1, K3 and K5 must launch).
-14. profile: one warm 4 x 8 MiB encode_segments_batch at l2 and at l1 under
+14. e2e l1: the same 32 MiB at level 1 (K1, K3 and K5 must launch).
+15. profile: one warm 4 x 8 MiB encode_segments_batch at l2 and at l1 under
    torch.profiler; prints the wall time, device busy time (union of
    kernel, copy and set intervals), idle share and the kernels that take
    the most device time.
@@ -1153,6 +1163,18 @@ def device_ms(fn, reps: int, name: str, kernel: str | None = None) -> float:
     raise AssertionError(f"{name}: three traces without the device events")
 
 
+def busy_time_us(events) -> float:
+    """Microseconds in which the card ran at least one of `events` (the
+    union of their intervals: work on two streams at once counts once)."""
+    busy_us, end = 0.0, float("-inf")
+    for e in sorted(events, key=lambda e: e["ts"]):
+        lo, hi = max(e["ts"], end), e["ts"] + e["dur"]
+        if hi > lo:
+            busy_us += hi - lo
+        end = max(end, hi)
+    return busy_us
+
+
 def phase_profile(data: bytes, level: int) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1172,12 +1194,7 @@ def phase_profile(data: bytes, level: int) -> None:
     if not dev:
         raise AssertionError(f"profile l{level}: the trace holds no device "
                              f"events")
-    busy_us, end = 0.0, float("-inf")
-    for e in sorted(dev, key=lambda e: e["ts"]):  # union of intervals
-        lo, hi = max(e["ts"], end), e["ts"] + e["dur"]
-        if hi > lo:
-            busy_us += hi - lo
-        end = max(end, hi)
+    busy_us = busy_time_us(dev)
     by_name: dict[str, float] = {}
     for e in dev:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
@@ -1385,6 +1402,108 @@ def phase_parallel(data: bytes, stream: bytes) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_inflight(seed: int) -> None:
+    """Batches in flight: 64 MiB, two 4 x 8 MiB batches at the defaults,
+    through torch_encode_bytes at l2 and l1, once at ORZ_INFLIGHT=1, then
+    twice at 2 (the first takes the second slot's allocations, the second
+    is the warm pass), each with the counts set to 0 just before it and
+    read just after.  The bytes, the launches and otz1_fallbacks must be
+    equal at 1 and 2, every encoder kernel of the level must launch, no
+    segment may take the per-segment retry, and the stream must round-trip
+    through the native decoder.  Prints each pass's MB/s and peak device
+    memory, then one encode at each value under torch.profiler: its idle
+    share over the call's wall time (as phase_profile reckons it), the
+    device busy time of each stream and the sum of the device events (more
+    than the busy time where the two slots' work ran at once)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from orz_tpu_torch.device import batch, container
+
+    t = time.perf_counter()
+    data = make_data(seed, 64 * MIB)
+    log(f"inflight data: {len(data)} bytes from seed {seed} "
+        f"({time.perf_counter() - t:.1f} s)")
+    mods = _kernel_modules()
+    before = os.environ.get("ORZ_INFLIGHT")
+
+    def encode(level):
+        return container.torch_encode_bytes(data, level=level, device="cuda")
+
+    try:
+        for level, path in ((2, ENCODER_KERNELS), (1, L1_KERNELS)):
+            runs = []  # (bytes, launches, OTZ1 fallbacks, seconds)
+            for inflight, n in (("1", 1), ("2", 1), ("2", 2)):
+                os.environ["ORZ_INFLIGHT"] = inflight
+                what = f"inflight l{level} ORZ_INFLIGHT={inflight}"
+                container.segment_retries = 0
+                batch.otz1_fallbacks = 0
+                comp, launches, secs, peak = counted(
+                    mods, lambda: encode(level), path, what)
+                reserved = torch.cuda.max_memory_reserved()
+                log(f"{what} pass {n}: {len(data)} -> {len(comp)} bytes, "
+                    f"{len(data) / 1e6 / secs:.3f} MB/s ({secs:.3f} s), peak "
+                    f"device memory {peak / 2**30:.3f} GiB allocated, "
+                    f"{reserved / 2**30:.3f} GiB reserved, launches "
+                    f"{launches}, segment_retries "
+                    f"{container.segment_retries}, OTZ1-fallback segments "
+                    f"{batch.otz1_fallbacks}")
+                if container.segment_retries:
+                    raise AssertionError(f"{what}: segments went through "
+                                         f"the per-segment retry")
+                runs.append((comp, launches, batch.otz1_fallbacks, secs))
+                if comp != runs[0][0]:
+                    raise AssertionError(f"{what}: the bytes differ from "
+                                         f"those at ORZ_INFLIGHT=1")
+                if runs[-1][1:3] != runs[0][1:3]:
+                    raise AssertionError(
+                        f"{what}: launches and OTZ1 fallbacks "
+                        f"{runs[-1][1:3]}, at ORZ_INFLIGHT=1 {runs[0][1:3]}")
+            if container.torch_decode_bytes(runs[0][0]) != data:
+                raise AssertionError(f"inflight l{level}: native decode does "
+                                     f"not round-trip")
+            idle = {}
+            for inflight in ("1", "2"):
+                os.environ["ORZ_INFLIGHT"] = inflight
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t = time.perf_counter()
+                    encode(level)
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t) * 1e3
+                dev = device_events(
+                    prof, f"smoke_profile_inflight{inflight}_l{level}.json")
+                if not dev:
+                    raise AssertionError(f"inflight l{level}: the trace "
+                                         f"holds no device events")
+                busy_ms = busy_time_us(dev) / 1e3
+                streams: dict = {}
+                for e in dev:
+                    streams.setdefault(e.get("args", {}).get("stream"),
+                                       []).append(e)
+                idle[inflight] = 1 - busy_ms / wall_ms
+                log(f"profile inflight l{level} ORZ_INFLIGHT={inflight}, "
+                    f"one {len(data) >> 20} MiB encode: wall {wall_ms:.1f} "
+                    f"ms, device busy {busy_ms:.1f} ms (sum of device events "
+                    f"{sum(e['dur'] for e in dev) / 1e3:.1f} ms), idle "
+                    f"share {idle[inflight]:.3f}; busy per stream: "
+                    + ", ".join(f"{k} {busy_time_us(v) / 1e3:.1f} ms"
+                                for k, v in streams.items()))
+            mbs = [len(data) / 1e6 / run[3] for run in runs]
+            log(f"inflight l{level} summary: {mbs[0]:.3f} MB/s at "
+                f"ORZ_INFLIGHT=1, {mbs[2]:.3f} at 2 (warm pass; "
+                f"{mbs[2] / mbs[0]:.3f}x), idle share {idle['1']:.3f} at 1, "
+                f"{idle['2']:.3f} at 2; bytes, launches and OTZ1 fallbacks "
+                f"equal, native round trip ok")
+    finally:
+        if before is None:
+            os.environ.pop("ORZ_INFLIGHT", None)
+        else:
+            os.environ["ORZ_INFLIGHT"] = before
+    torch.cuda.empty_cache()
+
+
 KERNEL_INFO = {
     "match_depth": ("orz_tpu_torch/csrc/match_depth.cu",
                     "orz_tpu/ops/match_pallas.py:258"),
@@ -1401,6 +1520,7 @@ KERNEL_INFO = {
 }
 ENCODER_KERNELS = ["match_depth", "match_depth_masked", "fence_walk",
                    "walk_mask", "symrank"]  # the l2 main path's
+L1_KERNELS = ["match_depth", "fence_walk", "symrank"]
 
 
 def main() -> int:
@@ -1440,13 +1560,14 @@ def main() -> int:
                              ENCODER_KERNELS)  # the main path
     for k in ENCODER_KERNELS:
         rec[k].update(launches=launches[k], library_ms=None)
+    phase("inflight", phase_inflight, args.seed)
     staged0 = phase("staged", phase_staged, data, orzt_payloads(stream))
     phase("cli", phase_cli, data, stream, staged0)
     phase("parallel", phase_parallel, data, stream)
     del stream
     phase("host", phase_host, data)
     phase("stages", phase_stages, data)
-    phase("e2e l1", e2e, data, 1, ["match_depth", "fence_walk", "symrank"])
+    phase("e2e l1", e2e, data, 1, L1_KERNELS)
     phase("profile l2", phase_profile, data, 2)
     phase("profile l1", phase_profile, data, 1)
     log("decoder_fallbacks 0 after every phase but refcodec's forced one, "

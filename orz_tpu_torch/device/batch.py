@@ -31,6 +31,7 @@ from orz_tpu_torch.device.host import (
     assemble_segment_np,
     pad_batch,
 )
+from orz_tpu_torch.kernels._lib import count
 from orz_tpu_torch.ops.batched import (
     back_body_b,
     front_body_b,
@@ -250,14 +251,13 @@ def encode_segments_batch(
         back_body_b(items, chunk_input, c_max)))
     del items
 
-    global otz1_fallbacks
     payloads = []
     for b, data in enumerate(datas):
         if ok_host[b]:
             payloads.append(assemble(data, metas[b], words[b], chunk_input,
                                      rings_mode))
         else:  # repair failed: this segment's per-segment OTZ1 encode
-            otz1_fallbacks += 1
+            count(globals(), "otz1_fallbacks")
             state = pipeline.segment_state(  # MID needs no FRONT mask
                 data, level, chunk_input, c_max, seg_lens[b:b + 1],
                 tuple(t[b:b + 1] for t in front) + (None,))

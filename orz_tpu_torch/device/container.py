@@ -3,8 +3,9 @@
 ``torch_encode`` mirrors ``orz_tpu/device/container.py`` ``tpu_encode``:
 segments stream through the port's batched chain, ``batch`` at a time,
 into the ORZT container (``device/pcontainer.py``; the framing is
-``pcontainer.py``'s).  A batch call that fails is retried segment by
-segment through the per-segment staged encoder
+``pcontainer.py``'s), up to ``ORZ_INFLIGHT`` batches in flight, each
+in-flight slot on its own CUDA stream.  A batch call that fails is
+retried segment by segment through the per-segment staged encoder
 (``device/pipeline.encode_segment_staged``), and ``ORZ_PER_SEGMENT=1``
 sends every segment there, ``batch`` threads on the one device, as JAX
 does.  ``torch_decode`` mirrors ``tpu_decode``: each
@@ -33,6 +34,7 @@ from orz_tpu_torch.device.batch import encode_segments_batch
 from orz_tpu_torch.device.host import _bucket_capacity
 from orz_tpu_torch.device.pcontainer import pipe_encode
 from orz_tpu_torch.device.pipeline import encode_segment_staged
+from orz_tpu_torch.kernels._lib import count
 from orz_tpu_torch.native import build_library
 from orz_tpu_torch.pcontainer import TPU_MAGIC, pipe_decode
 from orz_tpu_torch.progress import ProgressLogger
@@ -49,6 +51,33 @@ segment_retries = 0
 # the native decoder could not be loaded, since the last reset; 0 wherever
 # g++ builds csrc/otz_core.cpp.
 decoder_fallbacks = 0
+
+# The in-flight slots' streams, one per (CUDA device, slot), kept for the
+# process: the caching allocator keeps a stream's freed blocks for that
+# stream, so a later encode's slot reuses its earlier blocks.
+_slot_streams: dict[tuple[int, int], torch.cuda.Stream] = {}
+_slot_lock = threading.Lock()
+
+
+def slot_streams(device: str | torch.device):
+    """``pipe_encode``'s slot_init on `device`: on CUDA, each thread of the
+    in-flight pool makes its slot's stream (and its device) current, so
+    that the host syncs of its batch wait for that batch's work alone; None
+    on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    if device.index is None and torch.cuda.is_available():
+        device = torch.device("cuda", torch.cuda.current_device())
+
+    def slot_init(slot: int) -> None:
+        with _slot_lock:
+            key = (device.index, slot)
+            if key not in _slot_streams:
+                _slot_streams[key] = torch.cuda.Stream(device)
+        torch.cuda.set_stream(_slot_streams[key])
+
+    return slot_init
 
 
 def segment_encoders(level: int = 2, segment_size: int = DEFAULT_SEGMENT_SIZE,
@@ -69,8 +98,7 @@ def segment_encoders(level: int = 2, segment_size: int = DEFAULT_SEGMENT_SIZE,
                                      device=device)
 
     def encode_one(seg):
-        global segment_retries
-        segment_retries += 1
+        count(globals(), "segment_retries")
         return encode_segment_staged(seg, level, chunk_input,
                                      rings_mode=rings_mode, device=device)
 
@@ -94,7 +122,10 @@ def torch_encode(
     for `batch` (pass one of the two).  rings_mode: None = the level's
     default (OTZ2 from level 2); 0/1 force OTZ1/OTZ2.  With
     ``ORZ_PER_SEGMENT=1`` each segment goes through the staged encoder
-    instead, `batch` of them in flight on as many threads."""
+    instead, `batch` of them in flight on as many threads.  Otherwise up
+    to ``ORZ_INFLIGHT`` batch calls (read at each call, default 1) run at
+    once, each on a thread of its own and, on CUDA, on its slot's stream;
+    at 1 they run one after another on the caller's thread and stream."""
     if num_streams is not None:
         if batch is not None and batch != num_streams:
             raise ValueError(f"num_streams={num_streams} and batch={batch}: "
@@ -113,7 +144,8 @@ def torch_encode(
     pipe_encode(source, target,
                 *segment_encoders(level, segment_size, chunk_input,
                                   rings_mode, device),
-                TPU_MAGIC, segment_size, batch, progress)
+                TPU_MAGIC, segment_size, batch, progress,
+                slot_init=slot_streams(device))
 
 
 def torch_encode_bytes(data: bytes, level: int = 2, **kw) -> bytes:
@@ -167,18 +199,13 @@ def decode_segment(payload: bytes, max_raw_len: int = 1 << 31) -> bytes:
     return dst.tobytes()
 
 
-_fallback_lock = threading.Lock()
-
-
 def _decode_segment(payload: bytes, max_raw_len: int = 1 << 31) -> bytes:
-    global decoder_fallbacks
     try:
         return decode_segment(payload, max_raw_len=max_raw_len)
     except (OSError, ImportError):  # no toolchain: slow reference fallback
         from orz_tpu_torch.device.refcodec import decode_segment_ref
 
-        with _fallback_lock:
-            decoder_fallbacks += 1
+        count(globals(), "decoder_fallbacks")
         return decode_segment_ref(payload)
 
 

@@ -79,8 +79,7 @@ def fence_walk_mask(nxt: torch.Tensor, seg_lens: torch.Tensor):
     if nxt.device.type == "cpu":
         return fence_walk_mask_plain(nxt, seg_lens)
     mask, _ = launch_walk("fence_walk", nxt, seg_lens)
-    global launches
-    launches += 1
+    _lib.count(globals())
     return mask
 
 

@@ -128,6 +128,5 @@ def match_depth(msk, msp, rank_s, dw_s, end, depth: int, ro_cap: int = RING):
         N_DW, stream,
     )
     _lib.check(rc, "match_depth")
-    global launches
-    launches += 1
+    _lib.count(globals())
     return out

@@ -57,6 +57,5 @@ def match_depth_masked(msk, msp, rank_s, dw_s, end, mask_s, depth: int,
         LZ_MATCH_MIN_LEN, _FAR_GATE, FAR_RO_1, FAR_RO_2, N_DW, stream,
     )
     _lib.check(rc, "match_depth_masked")
-    global launches
-    launches += 1
+    _lib.count(globals())
     return out

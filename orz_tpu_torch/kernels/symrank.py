@@ -102,6 +102,5 @@ def symrank(symbol, sr_unlikely, sr_ctx, n_items, init_perm):
         S_PAD, stream,
     )
     _lib.check(rc, "otz_symrank")
-    global launches
-    launches += 1
+    _lib.count(globals())
     return coded

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from orz_tpu_torch.kernels import _lib
 from orz_tpu_torch.kernels.fence_walk import (
     check_inputs,
     fence_walk_mask_plain,
@@ -32,6 +33,5 @@ def walk_mask(nxt: torch.Tensor, seg_lens: torch.Tensor):
     if nxt.device.type == "cpu":
         return walk_mask_plain(nxt, seg_lens)
     out = launch_walk("walk_mask", nxt, seg_lens, counts=True)
-    global launches
-    launches += 1
+    _lib.count(globals())
     return out

@@ -66,6 +66,5 @@ def windowed_gather(src: torch.Tensor, idx: torch.Tensor,
         src.data_ptr(), idx.data_ptr(), base.data_ptr(), out.data_ptr(),
         src.shape[0], idx.shape[0] // BLK, stream)
     _lib.check(rc, "windowed_gather")
-    global launches
-    launches += 1
+    _lib.count(globals())
     return out

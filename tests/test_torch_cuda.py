@@ -372,3 +372,37 @@ def test_cli_gpu_decodes_jax_orzp(cuda, tmp_path):
     src.write_bytes(par.getvalue())
     assert cli.main(["decode", "-s", "-b", "gpu", str(src), str(out)]) == 0
     assert out.read_bytes() == data
+
+
+@pytest.mark.cuda
+def test_inflight_on_card_equals_cpu(cuda, monkeypatch):
+    """ORZ_INFLIGHT=2 on the card: three one-segment l2 batches (the short
+    schedule) in flight two at a time, each slot on its own stream, give
+    the CPU encode's bytes and the launch counts of ORZ_INFLIGHT=1."""
+    from orz_tpu_torch.device import container
+    from orz_tpu_torch.kernels import windowed_gather
+
+    mods = (match_depth, match_depth_masked, fence_walk, walk_mask, symrank,
+            windowed_gather)
+    monkeypatch.setenv("OTZ2_SCHEDULE", "96x1,384x2")
+    data = _data(7, 3 << 14)
+    kw = dict(level=2, segment_size=1 << 14, batch=1)
+    streams, counts = {}, {}
+    for inflight in ("1", "2"):
+        monkeypatch.setenv("ORZ_INFLIGHT", inflight)
+        torch.cuda.synchronize()
+        for mod in mods:
+            mod.launches = 0
+        container.segment_retries = 0
+        streams[inflight] = container.torch_encode_bytes(data, device="cuda",
+                                                         **kw)
+        torch.cuda.synchronize()
+        counts[inflight] = [mod.launches for mod in mods]
+        assert container.segment_retries == 0
+    assert streams["2"] == streams["1"]
+    assert counts["2"] == counts["1"]
+    assert all(counts["2"][:5]), counts["2"]
+    monkeypatch.setenv("ORZ_INFLIGHT", "1")
+    assert streams["2"] == container.torch_encode_bytes(data, device="cpu",
+                                                        **kw)
+    assert container.torch_decode_bytes(streams["2"]) == data
