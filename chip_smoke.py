@@ -55,6 +55,23 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    decoder_fallbacks counting each of its segments.  Every other phase
    must leave decoder_fallbacks at 0 (the command line's subprocesses
    print their own count), so that the native decoder is what decoded.
+6b. jax parity: the port on the card against JAX's committed digests
+   (tests/torch_parity_digests.json, written by tests/torch_parity_ref.py
+   from orz_tpu's tpu_encode_bytes on XLA:CPU; data from
+   orz_tpu_torch.tools.parity_data.make_parity_data, the same bytes under
+   any numpy): case S (2 x 128 KiB, 32 KiB chunks) at l1, l2 and l3, L
+   (4 x 1 MiB, 256 KiB chunks, batch 4) at l1 and l2, XL (one 8 MiB
+   segment, 2 MiB chunks) where committed, at the default schedules with
+   every OTZ*/ORZ* knob cleared, through torch_encode_bytes batched and
+   with ORZ_PER_SEGMENT=1 (S-l1 also through mesh_encode_segments): every
+   payload's SHA-256 must equal JAX's, every stream must round-trip
+   through the native decoder; one line per case and path with its
+   seconds and launches.  Then the production shape without JAX: the
+   first 2 MiB of the e2e data (the head of its first 8 MiB segment) at
+   l1 with 512 KiB chunks on the card must equal the sequential oracle
+   encode_segment_ref, run in a process of its own from the start of the
+   cpu parity phase (35-60 s a MiB on one host core of the card's
+   machine, so the whole 8 MiB segment would take over 4 minutes).
 7. e2e l2 (the main path): 32 MiB through torch_encode_bytes(level=2) with
    the defaults (8 MiB segments, batch 4, 2 MiB chunks), decoded by the
    native decoder; every kernel of the encoder must have launched, no
@@ -740,6 +757,7 @@ def phase_cli(data: bytes, stream: bytes, staged0: bytes) -> None:
     import torch
 
     from orz_tpu_torch.device.pipeline import encode_segment_staged
+    from orz_tpu_torch.tools.parity_data import frame_stream
 
     work = os.path.join(ROOT, "build", "smoke_cli")
     os.makedirs(work, exist_ok=True)
@@ -768,7 +786,7 @@ def phase_cli(data: bytes, stream: bytes, staged0: bytes) -> None:
     ck_s, ck_stat = cli("encode", "-b", "gpu", "-l", "2", "-p", "4",
                         "--checkpoint", path["ck.json"], path["in16.bin"],
                         path["out16.orz"])
-    staged = orzt_frame([staged0, encode_segment_staged(
+    staged = frame_stream([staged0, encode_segment_staged(
         half[8 * MIB:], 2, device="cuda")], 8 * MIB)
     if read("out16.orz") != staged:
         raise AssertionError("cli: the --checkpoint encode differs from the "
@@ -1028,6 +1046,129 @@ def phase_refcodec(seed: int) -> None:
         f"phase {time.perf_counter() - t:.2f} s")
 
 
+PARITY_DIGESTS = os.path.join(ROOT, "tests", "torch_parity_digests.json")
+ORACLE_BYTES = 2 * MIB  # the oracle takes 35-60 s a MiB on a host core
+ORACLE_CHUNK = 512 << 10  # four chunks, the production segment's count
+
+
+def oracle_segment(data: bytes) -> bytes:
+    """The `jax parity` phase's oracle segment: the head of the first 8 MiB
+    segment of the e2e data."""
+    return data[:ORACLE_BYTES]
+
+
+def timed_oracle(seg: bytes) -> tuple[bytes, float]:
+    """encode_segment_ref of seg at l1 (rings_mode 0) and its seconds."""
+    from orz_tpu_torch.device.refcodec import encode_segment_ref
+
+    t = time.perf_counter()
+    out = encode_segment_ref(seg, 1, chunk_input=ORACLE_CHUNK, rings_mode=0)
+    return out, time.perf_counter() - t
+
+
+def start_oracle(data: bytes):
+    """timed_oracle of the oracle segment in a process of its own (the
+    oracle is sequential numpy on one host core), so that it runs while
+    the card works: (its pool, its future)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(timed_oracle, oracle_segment(data))
+
+
+def phase_jax_parity(data: bytes, oracle) -> None:
+    """The port on the card against JAX's digests
+    (tests/torch_parity_digests.json, written by tests/torch_parity_ref.py
+    from orz_tpu's tpu_encode_bytes on XLA:CPU): each case's data from
+    make_parity_data, through torch_encode_bytes at the case's batch and
+    with ORZ_PER_SEGMENT=1 (and S-l1 through mesh_encode_segments over
+    four devices, here all the one card), every OTZ*/ORZ* knob cleared:
+    every payload's SHA-256 must equal JAX's and every stream must
+    round-trip through the native decoder.  Then the production shape with
+    no JAX: the oracle segment on the card at l1 must equal
+    encode_segment_ref (started in its own process by start_oracle)."""
+    import torch
+
+    from orz_tpu_torch.device import container
+    from orz_tpu_torch.device.batch import encode_segments_batch
+    from orz_tpu_torch.parallel.mesh import mesh_encode_segments
+    from orz_tpu_torch.tools import parity_data as pd
+
+    with open(PARITY_DIGESTS) as f:
+        cases = json.load(f)["cases"]
+    knobs = {k: os.environ.pop(k) for k in list(os.environ)
+             if k.startswith(("OTZ", "ORZ"))}
+    mods = _kernel_modules()
+    cuda4 = (torch.device("cuda"),) * pd.MESH_DEVICES
+    try:
+        for name, rec in cases.items():
+            data_c = pd.make_parity_data(rec["seed"], rec["n"],
+                                         rec["segment_size"])
+            level, seg = rec["level"], rec["segment_size"]
+            kw = dict(segment_size=seg, chunk_input=rec["chunk_input"],
+                      batch=rec["batch"], device="cuda")
+
+            def encode(path):
+                if path == "mesh":
+                    return pd.frame_stream(mesh_encode_segments(
+                        pd.mesh_segments(data_c, seg), level,
+                        rec["chunk_input"], mesh=cuda4), seg)
+                return container.torch_encode_bytes(data_c, level, **kw)
+
+            for path in rec["paths"]:
+                if path == "staged":
+                    os.environ["ORZ_PER_SEGMENT"] = "1"
+                try:
+                    stream, launches, secs, _ = counted(
+                        mods, lambda: encode(path),
+                        L1_KERNELS if level == 1 else ENCODER_KERNELS,
+                        f"jax parity {name} {path}")
+                finally:
+                    os.environ.pop("ORZ_PER_SEGMENT", None)
+                faults = pd.parity_faults(rec, path, data_c, stream)
+                if faults:
+                    raise AssertionError(f"jax parity {name} {path}: "
+                                         + "; ".join(faults))
+                if container.torch_decode_bytes(stream) != (
+                        b"".join(pd.mesh_segments(data_c, seg))
+                        if path == "mesh" else data_c):
+                    raise AssertionError(f"jax parity {name} {path}: the "
+                                         f"native decoder does not "
+                                         f"round-trip")
+                want = rec["paths"][path]
+                log(f"jax parity {name} {path}: {len(want['segments'])} x "
+                    f"{seg} bytes at l{level}, chunk_input "
+                    f"{rec['chunk_input']}, batch {rec['batch']}: "
+                    f"{len(data_c)} -> {len(stream)} bytes, every payload "
+                    f"= JAX's digest (JAX on XLA:CPU "
+                    f"{want['jax_seconds']:.1f} s), native round trip ok; "
+                    f"{secs:.2f} s on the card, launches {launches}")
+    finally:
+        os.environ.update(knobs)
+
+    pool, fut = oracle
+    head = oracle_segment(data)
+    t = time.perf_counter()
+    got = encode_segments_batch([head], 1, ORACLE_CHUNK, rings_mode=0,
+                                device="cuda")[0]
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with pool:
+        want, oracle_s = fut.result()
+    waited = time.perf_counter() - t
+    if got != want:
+        raise AssertionError(f"jax parity: the card's l1 payload of the "
+                             f"first {len(head)} bytes of the e2e data "
+                             f"differs from encode_segment_ref")
+    log(f"jax parity oracle: the first {len(head)} bytes of the e2e data at "
+        f"l1, chunk_input {ORACLE_CHUNK} ({len(head) // ORACLE_CHUNK} "
+        f"chunks): card payload ({card_s:.2f} s) = encode_segment_ref "
+        f"({len(want)} bytes, {oracle_s:.1f} s on one host core in its own "
+        f"process; waited {waited:.1f} s for it)")
+
+
 def _kernel_modules() -> dict:
     from orz_tpu_torch.kernels import (
         fence_walk,
@@ -1206,34 +1347,6 @@ def phase_profile(data: bytes, level: int) -> None:
         log(f"  {ms:9.3f} ms {ms / total_ms:6.1%}  {name[:90]}")
 
 
-def orzt_payloads(stream: bytes) -> list[bytes]:
-    """The segment payloads of an ORZT container, in order."""
-    from orz_tpu_torch.ioutil import read_len
-
-    f = io.BytesIO(stream)
-    if f.read(5) != b"ORZT\x01":
-        raise AssertionError("not an ORZT container")
-    read_len(f)  # segment size
-    out = []
-    while (n := read_len(f)):
-        out.append(f.read(n))
-    return out
-
-
-def orzt_frame(payloads, segment_size: int) -> bytes:
-    """The ORZT container of `payloads`."""
-    from orz_tpu_torch.ioutil import write_len
-
-    f = io.BytesIO()
-    f.write(b"ORZT\x01")
-    write_len(f, segment_size)
-    for p in payloads:
-        write_len(f, len(p))
-        f.write(p)
-    write_len(f, 0)
-    return f.getvalue()
-
-
 def counted(mods: dict, fn, path_kernels, what: str):
     """fn() with every kernel count set to 0 just before it and read just
     after: (its result, the counts, host seconds, peak device bytes).  Fails
@@ -1347,11 +1460,12 @@ def phase_parallel(data: bytes, stream: bytes) -> None:
         distributed,
         mesh_encode_segments_staged,
     )
+    from orz_tpu_torch.tools.parity_data import stream_payloads
 
     mesh = blocks_mesh()
     log(f"parallel: len(blocks_mesh()) = {len(mesh)} ({card_line()})")
     segs = [data[i * 8 * MIB:(i + 1) * 8 * MIB] for i in range(4)]
-    want = orzt_payloads(stream)
+    want = stream_payloads(stream)
     mods = _kernel_modules()
     flagged = []
     got, launches, secs, peak = counted(
@@ -1535,6 +1649,7 @@ def main() -> int:
     seconds = {}
 
     from orz_tpu_torch.device import container
+    from orz_tpu_torch.tools.parity_data import stream_payloads
 
     def phase(name, fn, *a):
         t = time.perf_counter()
@@ -1554,14 +1669,17 @@ def main() -> int:
         f"({time.perf_counter() - t:.1f} s)")
     rec = phase("kernels", phase_kernels, data)
     rec["windowed_gather"] = phase("gather", phase_gather)  # with the probe
+    oracle = start_oracle(data)  # runs on a host core from here on
     phase("cpu parity", phase_cpu_parity, args.seed)
     phase("refcodec", phase_refcodec, args.seed)
+    phase("jax parity", phase_jax_parity, data, oracle)
     launches, stream = phase("e2e l2", e2e, data, 2,
                              ENCODER_KERNELS)  # the main path
     for k in ENCODER_KERNELS:
         rec[k].update(launches=launches[k], library_ms=None)
     phase("inflight", phase_inflight, args.seed)
-    staged0 = phase("staged", phase_staged, data, orzt_payloads(stream))
+    staged0 = phase("staged", phase_staged, data,
+                    stream_payloads(stream))
     phase("cli", phase_cli, data, stream, staged0)
     phase("parallel", phase_parallel, data, stream)
     del stream

@@ -406,3 +406,31 @@ def test_inflight_on_card_equals_cpu(cuda, monkeypatch):
     assert streams["2"] == container.torch_encode_bytes(data, device="cpu",
                                                         **kw)
     assert container.torch_decode_bytes(streams["2"]) == data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["batched", "staged"])
+def test_parity_case_s_l2_on_card_equals_jax(cuda, path, monkeypatch):
+    """Case S at l2 (two 128 KiB segments, four 32 KiB chunks each, the
+    default schedule) on the card gives JAX's committed payload digests
+    (tests/torch_parity_digests.json, from orz_tpu on XLA:CPU) and
+    round-trips through the native decoder."""
+    import json
+    import os
+
+    from orz_tpu_torch.device import container
+    from orz_tpu_torch.tools import parity_data as pd
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "torch_parity_digests.json")) as f:
+        rec = json.load(f)["cases"]["S-l2"]
+    for k in [k for k in os.environ if k.startswith(("OTZ", "ORZ"))]:
+        monkeypatch.delenv(k)
+    if path == "staged":
+        monkeypatch.setenv("ORZ_PER_SEGMENT", "1")
+    data = pd.make_parity_data(rec["seed"], rec["n"], rec["segment_size"])
+    stream = container.torch_encode_bytes(
+        data, rec["level"], segment_size=rec["segment_size"],
+        chunk_input=rec["chunk_input"], batch=rec["batch"], device="cuda")
+    assert pd.parity_faults(rec, path, data, stream) == []
+    assert container.torch_decode_bytes(stream) == data
