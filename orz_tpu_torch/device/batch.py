@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from orz_tpu_torch import trace
 from orz_tpu_torch.bitio import BitEncoder
 from orz_tpu_torch.device import host
 from orz_tpu_torch.device.host import (
@@ -31,7 +32,6 @@ from orz_tpu_torch.device.host import (
     assemble_segment_np,
     pad_batch,
 )
-from orz_tpu_torch.kernels._lib import count
 from orz_tpu_torch.ops.batched import (
     back_body_b,
     front_body_b,
@@ -58,6 +58,9 @@ from orz_tpu_torch.spec import (
 # OTZ2 segments re-encoded through OTZ1 because their repair failed, since
 # the last reset.
 otz1_fallbacks = 0
+# Batches sent whole to the staged encoder (an empty segment, or symrank
+# skew), since the last reset.
+staged_batches = 0
 
 
 def quality_scan_body(bufs, seg_lens, mask0, ni0, head):
@@ -120,7 +123,9 @@ def mid2_body(bufs, seg_lens, it_a, it_b, m2_cap: int):
     fewer.  Returns (items, ok, r1, rounds, dem_a, dem_b)."""
     items_b, ok_b, dem_b = emit_iterate(bufs, seg_lens, it_b, m2_cap)
     thr = torch.clamp(it_b[1] >> 7, min=1024)
-    if bool((~ok_b | (dem_b > thr)).any()):  # anomalous
+    with trace.sync("anomalous"):
+        anomalous = bool((~ok_b | (dem_b > thr)).any())
+    if anomalous:
         items_a, ok_a, dem_a = emit_iterate(bufs, seg_lens, it_a, m2_cap)
         use_b = ok_b & ((dem_b <= thr) | ~ok_a | (dem_b <= dem_a))
         items = type(items_b)(*(
@@ -153,7 +158,8 @@ def resolve_device(device, who: str) -> torch.device:
 def skewed(r1, rounds) -> bool:
     """JAX's symrank skew check: some segment's rounds past the first C_MID
     contexts exceed R_CAP_MAX (host syncs r1 and rounds)."""
-    r1_h, r_h = torch.stack([r1, rounds]).cpu().numpy()
+    with trace.sync("skewed"):
+        r1_h, r_h = torch.stack([r1, rounds]).cpu().numpy()
     return bool(((r_h - r1_h) > host.R_CAP_MAX).any())
 
 
@@ -164,11 +170,14 @@ def _run(name: str, fn):
 
 def fetch_out(out):
     """One fetch of BACK's meta and of the payload words it needs."""
-    metas = out.meta.cpu().numpy()
+    with trace.sync("fetch_meta"):
+        metas = out.meta.cpu().numpy()
     total_words = int(metas[:, 3].max())
     k_fetch = min(out.words.shape[1],
                   -(-max(total_words, 1) // _FETCH_GRANULE) * _FETCH_GRANULE)
-    return metas, out.words[:, :k_fetch].cpu().numpy().astype(np.uint32)
+    with trace.sync("fetch_words"):
+        words = out.words[:, :k_fetch].cpu().numpy()
+    return metas, words.astype(np.uint32)
 
 
 def assemble(data: bytes, meta, words, chunk_input: int,
@@ -194,70 +203,93 @@ def encode_segments_batch(
     bucket of the largest).  rings_mode: None = the level's default (OTZ2
     from level 2); 0/1 force OTZ1/OTZ2.  Each device stage (FRONT, then
     QUALITY scan, QUALITY tail, MID2 or MID, then BACK with its fetch) runs
-    as ``stage(name, fn)``, which returns ``fn()``: a caller may time it."""
-    from orz_tpu_torch.device import pipeline
-
+    as ``stage(name, fn)``, which returns ``fn()``: a caller may time it.
+    The call is the span ``batch``, each stage a span of its name
+    (``orz_tpu_torch.trace``)."""
     if not datas or any(d is None for d in datas):
         raise ValueError("encode_segments_batch needs a list of bytes")
+    with trace.span("batch", segments=len(datas), level=level):
+        return _encode_batch(datas, level, chunk_input, rings_mode, cap,
+                             device, stage)
+
+
+def _encode_batch(datas, level, chunk_input, rings_mode, cap, device, stage):
+    from orz_tpu_torch.device import pipeline
+
     if rings_mode is None:
         rings_mode = int(otz2_enabled(level))
     device = resolve_device(device, "encode_segments_batch")
 
     def staged():  # JAX's per-segment route for the whole batch
-        return [pipeline.encode_segment_staged(d, level, chunk_input,
-                                               rings_mode=rings_mode,
-                                               device=device)
-                for d in datas]
+        trace.count(globals(), "staged_batches")
+        with trace.span("staged"):
+            return [pipeline.encode_segment_staged(d, level, chunk_input,
+                                                   rings_mode=rings_mode,
+                                                   device=device)
+                    for d in datas]
+
+    def run(name, fn):  # the stage's span, whatever `stage` does
+        with trace.span(name):
+            return stage(name, fn)
 
     if any(len(d) == 0 for d in datas):
         return staged()
     if cap is None:
         cap = _bucket_capacity(max(len(d) for d in datas))
     c_max = n_chunks_for(cap, chunk_input)
-    bufs_np, lens_np = pad_batch(datas, cap)
-    bufs = torch.from_numpy(bufs_np).to(device)
-    seg_lens = torch.from_numpy(lens_np).to(device)
+    with trace.span("pad_h2d"):
+        bufs_np, lens_np = pad_batch(datas, cap)
+        with trace.sync("h2d_bufs"):
+            bufs = torch.from_numpy(bufs_np).to(device)
+        with trace.sync("h2d_lens"):
+            seg_lens = torch.from_numpy(lens_np).to(device)
 
-    starts, n_items, pk1, bestq, bestro, bufs, mask0 = stage(
+    starts, n_items, pk1, bestq, bestro, bufs, mask0 = run(
         "FRONT", lambda: front_body_b(bufs, seg_lens, candidate_depth(level)))
     front = (starts, n_items, pk1, bestq, bestro, bufs)
     if not rings_mode:
         del mask0
-        m_cap = _bucket(max(int(n_items.max()), 1), 1 << 14, 2)
-        items, r1, rounds = stage("MID", lambda: mid_body_b(
+        with trace.sync("m_cap"):
+            m_cap = _bucket(max(int(n_items.max()), 1), 1 << 14, 2)
+        items, r1, rounds = run("MID", lambda: mid_body_b(
             starts, n_items, pk1, bestq, bestro, bufs, seg_lens, m_cap))
         ok_host = np.ones(len(datas), dtype=bool)
     else:
         head, tail, c_shifts = quality_split(otz2_schedule(level))
-        plan, mask, _ = stage("QUALITY scan", lambda: quality_scan_body(
+        plan, mask, _ = run("QUALITY scan", lambda: quality_scan_body(
             bufs, seg_lens, mask0, n_items, head))
         del mask0
-        it_a, it_b = stage("QUALITY tail", lambda: quality_tail_body(
+        it_a, it_b = run("QUALITY tail", lambda: quality_tail_body(
             bufs, seg_lens, plan, starts, n_items, pk1, mask, tail,
             c_shifts))
         del plan, mask
-        m2_cap = m2_cap_for(int(torch.stack([it_a[1], it_b[1]]).max()))
-        items, ok, r1, rounds = stage("MID2", lambda: mid2_body(
+        with trace.sync("m2_cap"):
+            m2_cap = m2_cap_for(int(torch.stack([it_a[1], it_b[1]]).max()))
+        items, ok, r1, rounds = run("MID2", lambda: mid2_body(
             bufs, seg_lens, it_a, it_b, m2_cap))[:4]
         del it_a, it_b
         items = without_failed(items, ok)
-        ok_host = ok.cpu().numpy()
+        with trace.sync("ok"):
+            ok_host = ok.cpu().numpy()
     if skewed(r1, rounds):
         del front, items
         return staged()
     if ok_host.all():
         del front, starts, pk1, bestq, bestro
-    metas, words = stage("BACK", lambda: fetch_out(
+    metas, words = run("BACK", lambda: fetch_out(
         back_body_b(items, chunk_input, c_max)))
     del items
 
     payloads = []
     for b, data in enumerate(datas):
         if ok_host[b]:
-            payloads.append(assemble(data, metas[b], words[b], chunk_input,
-                                     rings_mode))
-        else:  # repair failed: this segment's per-segment OTZ1 encode
-            count(globals(), "otz1_fallbacks")
+            with trace.span("assemble"):
+                payloads.append(assemble(data, metas[b], words[b],
+                                         chunk_input, rings_mode))
+            continue
+        # repair failed: this segment's per-segment OTZ1 encode
+        trace.count(globals(), "otz1_fallbacks")
+        with trace.span("otz1_fallback"):
             state = pipeline.segment_state(  # MID needs no FRONT mask
                 data, level, chunk_input, c_max, seg_lens[b:b + 1],
                 tuple(t[b:b + 1] for t in front) + (None,))

@@ -29,12 +29,11 @@ import threading
 import numpy as np
 import torch
 
-from orz_tpu_torch import pcontainer
+from orz_tpu_torch import pcontainer, trace
 from orz_tpu_torch.device.batch import encode_segments_batch
 from orz_tpu_torch.device.host import _bucket_capacity
 from orz_tpu_torch.device.pcontainer import pipe_encode
 from orz_tpu_torch.device.pipeline import encode_segment_staged
-from orz_tpu_torch.kernels._lib import count
 from orz_tpu_torch.native import build_library
 from orz_tpu_torch.pcontainer import TPU_MAGIC, pipe_decode
 from orz_tpu_torch.progress import ProgressLogger
@@ -98,7 +97,7 @@ def segment_encoders(level: int = 2, segment_size: int = DEFAULT_SEGMENT_SIZE,
                                      device=device)
 
     def encode_one(seg):
-        count(globals(), "segment_retries")
+        trace.count(globals(), "segment_retries")
         return encode_segment_staged(seg, level, chunk_input,
                                      rings_mode=rings_mode, device=device)
 
@@ -125,7 +124,8 @@ def torch_encode(
     instead, `batch` of them in flight on as many threads.  Otherwise up
     to ``ORZ_INFLIGHT`` batch calls (read at each call, default 1) run at
     once, each on a thread of its own and, on CUDA, on its slot's stream;
-    at 1 they run one after another on the caller's thread and stream."""
+    at 1 they run one after another on the caller's thread and stream.
+    The call is the span ``encode`` (``orz_tpu_torch.trace``)."""
     if num_streams is not None:
         if batch is not None and batch != num_streams:
             raise ValueError(f"num_streams={num_streams} and batch={batch}: "
@@ -133,19 +133,20 @@ def torch_encode(
         batch = num_streams
     if batch is None:
         batch = DEFAULT_BATCH
-    if os.environ.get("ORZ_PER_SEGMENT") == "1":
-        pcontainer.pipe_encode(
-            source, target,
-            lambda seg: encode_segment_staged(seg, level, chunk_input,
-                                              rings_mode=rings_mode,
-                                              device=device),
-            TPU_MAGIC, segment_size, batch, progress)
-        return
-    pipe_encode(source, target,
-                *segment_encoders(level, segment_size, chunk_input,
-                                  rings_mode, device),
-                TPU_MAGIC, segment_size, batch, progress,
-                slot_init=slot_streams(device))
+    with trace.span("encode", level=level):
+        if os.environ.get("ORZ_PER_SEGMENT") == "1":
+            pcontainer.pipe_encode(
+                source, target,
+                lambda seg: encode_segment_staged(seg, level, chunk_input,
+                                                  rings_mode=rings_mode,
+                                                  device=device),
+                TPU_MAGIC, segment_size, batch, progress)
+            return
+        pipe_encode(source, target,
+                    *segment_encoders(level, segment_size, chunk_input,
+                                      rings_mode, device),
+                    TPU_MAGIC, segment_size, batch, progress,
+                    slot_init=slot_streams(device))
 
 
 def torch_encode_bytes(data: bytes, level: int = 2, **kw) -> bytes:
@@ -205,7 +206,7 @@ def _decode_segment(payload: bytes, max_raw_len: int = 1 << 31) -> bytes:
     except (OSError, ImportError):  # no toolchain: slow reference fallback
         from orz_tpu_torch.device.refcodec import decode_segment_ref
 
-        count(globals(), "decoder_fallbacks")
+        trace.count(globals(), "decoder_fallbacks")
         return decode_segment_ref(payload)
 
 

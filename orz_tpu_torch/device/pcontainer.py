@@ -22,6 +22,7 @@ import itertools
 import os
 from concurrent.futures import Future, ThreadPoolExecutor
 
+from orz_tpu_torch import trace
 from orz_tpu_torch.pcontainer import frame_segments, read_segment
 from orz_tpu_torch.progress import ProgressLogger
 
@@ -57,8 +58,9 @@ def encoded_segments(source, encode_batch, encode_one, segment_size: int,
     bsz = max(batch, 1)
     inflight = max(1, int(os.environ.get("ORZ_INFLIGHT", "1")))
 
-    def run(segs):
-        return encode_batch(segs + [segs[0]] * (bsz - len(segs)))[:len(segs)]
+    def run(segs, parent):  # parent: the caller's span, for a pool thread
+        with trace.under(parent):
+            return encode_batch(segs + [segs[0]] * (bsz - len(segs)))[:len(segs)]
 
     if inflight == 1:
         pool = _Serial()
@@ -74,15 +76,16 @@ def encoded_segments(source, encode_batch, encode_one, segment_size: int,
         while not eof or pending:
             while not eof and len(pending) < inflight:
                 segs = []
-                while len(segs) < bsz:
-                    seg = read_segment(source, segment_size)
-                    if not seg:
-                        eof = True
-                        break
-                    segs.append(seg)
+                with trace.span("read"):
+                    while len(segs) < bsz:
+                        seg = read_segment(source, segment_size)
+                        if not seg:
+                            eof = True
+                            break
+                        segs.append(seg)
                 if not segs:
                     break
-                pending.append((segs, pool.submit(run, segs)))
+                pending.append((segs, pool.submit(run, segs, trace.current())))
             if pending:
                 segs, fut = pending.pop(0)
                 try:

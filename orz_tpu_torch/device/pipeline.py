@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from orz_tpu_torch import trace
 from orz_tpu_torch.bitio import BitEncoder
 from orz_tpu_torch.device import host
 from orz_tpu_torch.device.batch import (
@@ -88,8 +89,10 @@ def dispatch_segment_front(data: bytes, level: int, chunk_input: int,
     device = resolve_device(device, "dispatch_segment_front")
     cap = _bucket_capacity(len(data))
     bufs_np, lens_np = pad_batch([data], cap)
-    bufs = torch.from_numpy(bufs_np).to(device)
-    seg_lens = torch.from_numpy(lens_np).to(device)
+    with trace.sync("h2d_bufs"):
+        bufs = torch.from_numpy(bufs_np).to(device)
+    with trace.sync("h2d_lens"):
+        seg_lens = torch.from_numpy(lens_np).to(device)
     return segment_state(data, level, chunk_input,
                          n_chunks_for(cap, chunk_input), seg_lens,
                          front_body_b(bufs, seg_lens, candidate_depth(level)))
@@ -100,7 +103,8 @@ def dispatch_segment_mid(front: dict) -> dict:
     if front["empty"]:
         return front
     starts, n_items, pk1, bestq, bestro, bufs, _ = front["front"]
-    m_cap = _bucket(max(int(n_items), 1), 1 << 14, 2)
+    with trace.sync("m_cap"):
+        m_cap = _bucket(max(int(n_items), 1), 1 << 14, 2)
     items, r1, rounds = mid_body_b(starts, n_items, pk1, bestq, bestro, bufs,
                                    front["seg_lens"], m_cap)
     return dict(front, items=items, r1=r1, rounds=rounds)
@@ -157,11 +161,18 @@ def dispatch_segment_mid2(front: dict) -> dict:
     def emit(it):
         st, ni, pk, mask = it
         bq2, bl2 = conform_mask_b(bufs, seg_lens, c_shifts, mask, plan)
+        with trace.sync("m2_cap"):
+            m2_cap = m2_cap_for(int(ni))
         items, ok, dem = emit_iterate(bufs, seg_lens, (st, ni, pk, bq2, bl2),
-                                      m2_cap_for(int(ni)))
-        return bool(ok), int(dem), items
+                                      m2_cap)
+        with trace.sync("emission_ok"):
+            ok = bool(ok)
+        with trace.sync("emission_dem"):
+            dem = int(dem)
+        return ok, dem, items
 
-    thr = max(1024, int(it[1]) >> 7)
+    with trace.sync("thr"):
+        thr = max(1024, int(it[1]) >> 7)
     best, cand = best_emission(emit, [it] + hist[::-1], thr)
     del plan, hist, it
     if best is None:
@@ -182,7 +193,8 @@ def dispatch_segment_back(mid: dict) -> dict:
     ``encode_segment_device``, any other through BACK."""
     if mid["empty"]:
         return mid
-    r1, r = (int(v) for v in torch.stack([mid["r1"], mid["rounds"]]).cpu())
+    with trace.sync("skewed"):
+        r1, r = (int(v) for v in torch.stack([mid["r1"], mid["rounds"]]).cpu())
     if r - r1 > host.R_CAP_MAX:  # pathological skew: one hot context
         return {"empty": False, "fallback": encode_segment_device(
             mid["data"], mid["level"], mid["chunk_input"],

@@ -40,18 +40,7 @@ _SIGNATURES = {
 
 _lib = None
 _lock = threading.Lock()
-_count_lock = threading.Lock()
 build_log: list[str] = []  # nvcc's output per source (ptxas -v), last build
-
-
-def count(namespace: dict, name: str = "launches") -> None:
-    """Add one to the module counter ``namespace[name]`` (``namespace`` is
-    the module's ``globals()``) under one lock: batches in flight, the
-    mesh's device threads and ``ORZ_PER_SEGMENT``'s pool call the wrappers
-    from several threads, and ``x += 1`` on a global can lose an update.
-    Readers read and reset the counter as a plain module attribute."""
-    with _count_lock:
-        namespace[name] += 1
 
 
 def sources() -> list[str]:

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from orz_tpu_torch import trace
 from orz_tpu_torch.kernels import _lib
 from orz_tpu_torch.spec import FENCE, PAD_FRONT
 
@@ -79,7 +80,7 @@ def fence_walk_mask(nxt: torch.Tensor, seg_lens: torch.Tensor):
     if nxt.device.type == "cpu":
         return fence_walk_mask_plain(nxt, seg_lens)
     mask, _ = launch_walk("fence_walk", nxt, seg_lens)
-    _lib.count(globals())
+    trace.count(globals())
     return mask
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from orz_tpu_torch import trace
 from orz_tpu_torch.device.host import N_DW
 from orz_tpu_torch.kernels import _lib
 from orz_tpu_torch.spec import (
@@ -128,5 +129,5 @@ def match_depth(msk, msp, rank_s, dw_s, end, depth: int, ro_cap: int = RING):
         N_DW, stream,
     )
     _lib.check(rc, "match_depth")
-    _lib.count(globals())
+    trace.count(globals())
     return out

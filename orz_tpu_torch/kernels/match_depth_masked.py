@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from orz_tpu_torch import trace
 from orz_tpu_torch.device.host import N_DW
 from orz_tpu_torch.kernels import _lib
 from orz_tpu_torch.kernels.match_depth import (
@@ -57,5 +58,5 @@ def match_depth_masked(msk, msp, rank_s, dw_s, end, mask_s, depth: int,
         LZ_MATCH_MIN_LEN, _FAR_GATE, FAR_RO_1, FAR_RO_2, N_DW, stream,
     )
     _lib.check(rc, "match_depth_masked")
-    _lib.count(globals())
+    trace.count(globals())
     return out

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from orz_tpu_torch import trace
 from orz_tpu_torch.device.host import C, S, S_PAD, TOP
 from orz_tpu_torch.kernels import _lib
 
@@ -102,5 +103,5 @@ def symrank(symbol, sr_unlikely, sr_ctx, n_items, init_perm):
         S_PAD, stream,
     )
     _lib.check(rc, "otz_symrank")
-    _lib.count(globals())
+    trace.count(globals())
     return coded

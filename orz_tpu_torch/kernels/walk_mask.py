@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from orz_tpu_torch import trace
 from orz_tpu_torch.kernels import _lib
 from orz_tpu_torch.kernels.fence_walk import (
     check_inputs,
@@ -33,5 +34,5 @@ def walk_mask(nxt: torch.Tensor, seg_lens: torch.Tensor):
     if nxt.device.type == "cpu":
         return walk_mask_plain(nxt, seg_lens)
     out = launch_walk("walk_mask", nxt, seg_lens, counts=True)
-    _lib.count(globals())
+    trace.count(globals())
     return out

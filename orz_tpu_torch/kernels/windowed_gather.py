@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from orz_tpu_torch import trace
 from orz_tpu_torch.kernels import _lib
 
 BLK = 2048  # outputs per block (tools/gather_probe.py)
@@ -66,5 +67,5 @@ def windowed_gather(src: torch.Tensor, idx: torch.Tensor,
         src.data_ptr(), idx.data_ptr(), base.data_ptr(), out.data_ptr(),
         src.shape[0], idx.shape[0] // BLK, stream)
     _lib.check(rc, "windowed_gather")
-    _lib.count(globals())
+    trace.count(globals())
     return out

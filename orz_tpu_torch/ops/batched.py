@@ -33,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from orz_tpu_torch import trace
 from orz_tpu_torch.device.host import (
     C,
     C_MID,
@@ -361,7 +362,8 @@ def _extend_b(dw: torch.Tensor, best_q, cur, cap_back, alive):
     cap or the round count.  The JAX chunked straight-line stages process
     the same alive set; here it is compacted once."""
     bsz, n = dw.shape
-    flat = alive.reshape(-1).nonzero().squeeze(1)
+    with trace.sync("extend_nonzero"):
+        flat = alive.reshape(-1).nonzero().squeeze(1)
     row = flat // n
     pc = flat % n
     q = best_q.reshape(-1)[flat].long()

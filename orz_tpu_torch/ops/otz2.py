@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from orz_tpu_torch import trace
 from orz_tpu_torch.kernels.fence_walk import walk_items
 from orz_tpu_torch.kernels.walk_mask import walk_mask
 from orz_tpu_torch.ops.batched import (
@@ -214,10 +215,15 @@ def conform_repair_b(starts, n_items, pk1, bestq2, bestlen2, bufs, seg_lens,
 
     any_viol = True
     for _ in range(repair_passes):
-        if not (any_viol and bool(ok.any())):
+        if not any_viol:
+            break
+        with trace.sync("repair_ok"):
+            some_ok = bool(ok.any())
+        if not some_ok:
             break
         viol = violations(start, kind, length, q, n2)[0]
-        any_viol = bool(viol.any())
+        with trace.sync("repair_viol"):
+            any_viol = bool(viol.any())
         if any_viol:
             start, kind, length, q, n2 = _expand_b(
                 start, torch.where(viol, 0, kind), q,

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
 
-from orz_tpu_torch import container
+from orz_tpu_torch import container, trace
 from orz_tpu_torch.cfg import LZCfg
 from orz_tpu_torch.ioutil import CountRead, CountWrite, read_len, write_len
 from orz_tpu_torch.progress import ProgressLogger, SilentProgressLogger
@@ -83,9 +83,10 @@ def frame_segments(source, target, magic: bytes, segment_size: int,
     target.write(magic)
     write_len(target, segment_size)
     for _, payload in segments(source):
-        write_len(target, len(payload))
-        target.write(payload)
-        progress.log(source.count(), target.count())
+        with trace.span("frame"):
+            write_len(target, len(payload))
+            target.write(payload)
+            progress.log(source.count(), target.count())
     write_len(target, 0)
     progress.finish(source.count(), target.count())
 

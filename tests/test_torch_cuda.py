@@ -434,3 +434,50 @@ def test_parity_case_s_l2_on_card_equals_jax(cuda, path, monkeypatch):
         chunk_input=rec["chunk_input"], batch=rec["batch"], device="cuda")
     assert pd.parity_faults(rec, path, data, stream) == []
     assert container.torch_decode_bytes(stream) == data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [1, 2])
+def test_host_syncs_are_the_sync_debug_modes(cuda, level, monkeypatch):
+    """The program counts (``trace.host_syncs``) each host sync of a batch
+    that ``torch.cuda.set_sync_debug_mode("warn")`` reports, and no
+    other."""
+    from orz_tpu_torch.tools.sync_sites import batch_syncs
+
+    monkeypatch.setenv("OTZ2_SCHEDULE", "96x1,384x2")
+    segs = [_data(11, 1 << 16), _data(12, (1 << 16) - 99)]
+    batch_syncs(segs, level)  # warm: the library's load, first allocations
+    seen, counted, sites, names = batch_syncs(segs, level)
+    assert seen == counted == len(names), (sites, names)
+
+
+@pytest.mark.cuda
+def test_spans_share_the_profilers_clock_on_card(cuda):
+    """Under torch.profiler with CUDA activity only (as the benchmark
+    traces), every CUDA runtime launch of a batch lies within the program's
+    ``batch`` span, and within one of its stages or host syncs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from orz_tpu_torch import trace
+    from orz_tpu_torch.device.batch import encode_segments_batch
+
+    segs = [_data(13, 1 << 16)] * 2
+    encode_segments_batch(segs, 1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trace.start()
+        try:
+            encode_segments_batch(segs, 1, device="cuda")
+        finally:
+            spans = trace.stop()
+        torch.cuda.synchronize()
+    launches = [(e.start_ns(), e.start_ns() + e.duration_ns())
+                for e in prof.profiler.kineto_results.events()
+                if e.name() == "cudaLaunchKernel"]
+    (b,) = [s for s in spans if s["name"] == "batch"]
+    stages = [s for s in spans if s["name"] in ("FRONT", "MID", "BACK")
+              or s["name"].startswith("sync.")]
+    assert len(launches) > 20
+    assert all(b["start"] <= lo <= hi <= b["end"] for lo, hi in launches)
+    assert all(any(s["start"] <= lo <= hi <= s["end"] for s in stages)
+               for lo, hi in launches)

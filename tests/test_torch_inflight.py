@@ -204,7 +204,7 @@ def test_counter_is_exact_under_threads():
     would lose updates and leave the total short."""
     import time
 
-    from orz_tpu_torch.kernels import _lib
+    from orz_tpu_torch import trace
 
     class Namespace(dict):
         def __setitem__(self, key, value):
@@ -216,7 +216,7 @@ def test_counter_is_exact_under_threads():
 
     def hammer():
         for _ in range(per_thread):
-            _lib.count(counters)
+            trace.count(counters)
 
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
