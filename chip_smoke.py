@@ -27,7 +27,13 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    time includes the wrapper's sort), max_chain (the largest (segment,
    context) item count) and chain_ms, the kernel's device time on that
    (segment, context)'s items alone (its serial chain, which no other
-   context shortens), with the latency per item it implies.
+   context shortens), with the latency per item it implies.  The
+   segmented scans (csrc/seg_scan.cu, no TPU kernel behind them) on
+   QUALITY's inputs: the plan's group starts with the FRONT mask's word
+   updates (last_marked) and item starts (exclusive_count); exact
+   equality with the plain versions; CUDA-event times of kernel and
+   plain, the byte bound, and one int64 torch.cummax over the same slots
+   (what each of the plain versions' scans costs) as a yardstick.
 4. gather: P1 (the windowed gather) at the probe's default size, m = 2^21
    outputs from n = 2^23 words, on the probe's ascending indices and on
    the four edge cases (in window, fill, wrap, clamp): exact equality
@@ -469,6 +475,7 @@ def phase_kernels(data: bytes) -> dict:
         fence_walk,
         match_depth,
         match_depth_masked,
+        seg_scan,
         symrank,
         walk_mask,
     )
@@ -544,6 +551,36 @@ def phase_kernels(data: bytes) -> dict:
         if variant == "iteration":  # QUALITY's 11 deep steps
             rec["match_depth_masked"] = dict(max_abs_err=err, ms=ms,
                                              plain_ms=plain_ms, **bd)
+    # the segmented scans as QUALITY's masked analysis calls them
+    x = p.expand(bsz, n)
+    upd = (x >= PAD_FRONT - 2) & (x < end.view(-1, 1)) & ob._rolll(mask, 3)
+    scans = (("last_marked", seg_scan.last_marked, seg_scan.last_marked_plain,
+              plan.first_h2, torch.gather(upd, 1, plan.sp_h2)),
+             ("exclusive_count", seg_scan.exclusive_count,
+              seg_scan.exclusive_count_plain, plan.first_ctx,
+              torch.gather(mask & valid, 1, plan.sp_ctx)))
+    del upd, x
+    bd = bound(6 * bsz * n, 0)  # two bool flags read, one int32 written
+    for name, fn, plain, first, marked in scans:
+        err = require_equal(f"seg_scan {name}", fn(first, marked),
+                            plain(first, marked))
+        ms = cuda_ms(lambda: fn(first, marked), 20)
+        plain_ms = cuda_ms(lambda: plain(first, marked), 3)
+        ivals = torch.where(marked, p.expand(bsz, n), -1)
+        cummax_ms = cuda_ms(lambda: torch.cummax(ivals, dim=1), 3)
+        del ivals
+        log(f"seg_scan {name} B=4 n={n}: equal, kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, one int64 torch.cummax {cummax_ms:.3f} ms "
+            f"(yardstick), bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
+            f"{ms / bd['bound_ms']:.2f}x); group starts "
+            f"{float(first.float().mean()):.2e} of the slots, marked "
+            f"{float(marked.float().mean()):.4f}")
+        if name == "last_marked":
+            rec["seg_scan"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                   cummax_ms=cummax_ms, **bd)
+        else:
+            rec["seg_scan"].update(count_ms=ms, count_plain_ms=plain_ms)
+    del scans, first, marked
     del plan, order, rank_s, mask_s, mask
 
     an = ob.analyze_b(bufs, lens, 32)
@@ -1174,6 +1211,7 @@ def _kernel_modules() -> dict:
         fence_walk,
         match_depth,
         match_depth_masked,
+        seg_scan,
         symrank,
         walk_mask,
         windowed_gather,
@@ -1182,7 +1220,8 @@ def _kernel_modules() -> dict:
     return {"match_depth": match_depth,
             "match_depth_masked": match_depth_masked,
             "fence_walk": fence_walk, "walk_mask": walk_mask,
-            "symrank": symrank, "windowed_gather": windowed_gather}
+            "symrank": symrank, "windowed_gather": windowed_gather,
+            "seg_scan": seg_scan}
 
 
 def e2e(data: bytes, level: int, path_kernels) -> tuple[dict, bytes]:
@@ -1631,9 +1670,11 @@ KERNEL_INFO = {
                 "orz_tpu/ops/symrank_pallas.py:204"),
     "windowed_gather": ("orz_tpu_torch/csrc/windowed_gather.cu",
                         "tools/gather_probe.py:74"),
+    "seg_scan": ("orz_tpu_torch/csrc/seg_scan.cu",
+                 "none: ATen int64 scans in place of lax.associative_scan"),
 }
 ENCODER_KERNELS = ["match_depth", "match_depth_masked", "fence_walk",
-                   "walk_mask", "symrank"]  # the l2 main path's
+                   "walk_mask", "symrank", "seg_scan"]  # the l2 main path's
 L1_KERNELS = ["match_depth", "fence_walk", "symrank"]
 
 

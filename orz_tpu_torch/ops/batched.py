@@ -22,9 +22,11 @@ Conventions that keep the results equal to the JAX ones:
   extra column that is dropped afterwards.  Where the scattered rows are a
   permutation (the match queries of an item merge), each row is written
   once and the rest go to distinct dump columns: no atomics.
-- ``lax.associative_scan`` has no torch counterpart: segmented scans are
-  a ``cummax`` of slot indices clipped at the group start, or a
-  ``cumsum`` minus its value at the group start.
+- ``lax.associative_scan`` has no torch counterpart.  QUALITY's segmented
+  scans over sorted slots (the newest marked slot of a group, a group's
+  exclusive count) are one CUDA kernel, ``kernels/seg_scan.py``; the
+  other scans are a ``cummax`` of slot indices clipped at the group
+  start, or a ``cumsum`` minus its value at the group start.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from orz_tpu_torch.kernels.match_depth import (
     shift_dn,
 )
 from orz_tpu_torch.kernels.match_depth_masked import match_depth_masked
+from orz_tpu_torch.kernels.seg_scan import exclusive_count, last_marked
 from orz_tpu_torch.kernels.symrank import symrank
 from orz_tpu_torch.ops.huffman import canonical_codes_b, pm_code_lens_b
 from orz_tpu_torch.spec import (
@@ -246,20 +249,6 @@ def word_predictions_b(ba: ByteArrays, bufs: torch.Tensor,
     return torch.where((x >= PAD_FRONT) & (x < end), pred, 0)
 
 
-def _group_start(first: torch.Tensor) -> torch.Tensor:
-    """Slot index of each slot's group start (int64)."""
-    s = torch.arange(first.shape[1], device=first.device).expand_as(first)
-    return torch.cummax(torch.where(first, s, 0), dim=1).values
-
-
-def _last_marked(first: torch.Tensor, marked: torch.Tensor) -> torch.Tensor:
-    """Slot index of the newest marked slot at or before each slot within
-    its group, -1 when there is none (int64)."""
-    s = torch.arange(first.shape[1], device=first.device).expand_as(first)
-    last = torch.cummax(torch.where(marked, s, -1), dim=1).values
-    return torch.where(last >= _group_start(first), last, -1)
-
-
 def masked_plan_b(bufs: torch.Tensor, seg_lens: torch.Tensor) -> MaskedPlan:
     """The plan's three sorts, once per batch (``masked_plan_b``)."""
     bsz, n = bufs.shape
@@ -280,19 +269,28 @@ def masked_plan_b(bufs: torch.Tensor, seg_lens: torch.Tensor) -> MaskedPlan:
                       sp_ctx, _first_marks(skc), msk, order.int(), dw_s)
 
 
+def _prev_in_group(first: torch.Tensor, u1: torch.Tensor) -> torch.Tensor:
+    """Per slot, the newest marked slot before it within its group, -1 for
+    none, from ``u1`` (the newest at or before it): ``u1`` one slot back,
+    where the slot does not start its group."""
+    prev = torch.cat([torch.full_like(u1[:, :1], -1), u1[:, :-1]], dim=1)
+    return torch.where(first, -1, prev)
+
+
 def _words1_scan_b(first, sp, sval, supd):
     """Per sorted slot, the value of the newest update at a position <= its
     own - 2 among the newest three updates of its group (inclusive), else
     0 (``_words1_scan_b``'s segmented newest-3 trail, built from the newest
     update and each update's predecessor)."""
-    u1 = _last_marked(first, supd)
-    prev = torch.cat([torch.full_like(u1[:, :1], -1), u1[:, :-1]], dim=1)
-    prev = torch.where(prev >= _group_start(first), prev, -1)
-    u2 = torch.where(u1 >= 0, torch.gather(prev, 1, u1.clamp(min=0)), -1)
-    u3 = torch.where(u2 >= 0, torch.gather(prev, 1, u2.clamp(min=0)), -1)
+    u1 = last_marked(first, supd)
+    prev = _prev_in_group(first, u1)
+    u2 = torch.where(u1 >= 0, torch.gather(prev, 1, u1.long().clamp(min=0)),
+                     -1)
+    u3 = torch.where(u2 >= 0, torch.gather(prev, 1, u2.long().clamp(min=0)),
+                     -1)
 
     def at(u):  # (position, value) of update slot u; position -1 for none
-        uc = u.clamp(min=0)
+        uc = u.long().clamp(min=0)
         return (torch.where(u >= 0, torch.gather(sp, 1, uc), -1),
                 torch.gather(sval, 1, uc))
 
@@ -322,10 +320,9 @@ def masked_context_counts_planned_b(plan: MaskedPlan, valid: torch.Tensor,
                                     mask: torch.Tensor) -> torch.Tensor:
     """Per position, the count of earlier ``mask`` positions in its byte
     context (a segmented exclusive sum over the (cctx, x) sort)."""
-    sm = torch.gather((mask & valid).long(), 1, plan.sp_ctx)
-    excl = torch.cumsum(sm, dim=1) - sm
-    excl = excl - torch.gather(excl, 1, _group_start(plan.first_ctx))
-    (scnt,) = _sort_back_b(plan.sp_ctx, (excl.int(),))
+    sm = torch.gather(mask & valid, 1, plan.sp_ctx)
+    (scnt,) = _sort_back_b(plan.sp_ctx,
+                           (exclusive_count(plan.first_ctx, sm),))
     return torch.where(valid, scnt, 0)
 
 

@@ -16,13 +16,13 @@ import torch
 
 from orz_tpu_torch import trace
 from orz_tpu_torch.kernels.fence_walk import walk_items
+from orz_tpu_torch.kernels.seg_scan import last_marked
 from orz_tpu_torch.kernels.walk_mask import walk_mask
 from orz_tpu_torch.ops.batched import (
     INT_MAX,
     Items,
     MaskedPlan,
     _first_marks,
-    _last_marked,
     _positions,
     analyze_b,
     bgather,
@@ -160,8 +160,8 @@ def _pred_at_items_b(start, kind, length, pk1, bufs, n_items):
     k1 = torch.gather(key1, 1, o)
     p_ = torch.gather(pay, 1, o)
     is_q = o >= mc  # the query half carries odd key2
-    u = _last_marked(_first_marks(k1), ~is_q)
-    val = torch.where(u >= 0, torch.gather(p_, 1, u.clamp(min=0)), 0)
+    u = last_marked(_first_marks(k1), ~is_q)
+    val = torch.where(u >= 0, torch.gather(p_, 1, u.long().clamp(min=0)), 0)
     return scatter_queries(is_q, p_, val, mc)
 
 

@@ -19,14 +19,17 @@ from orz_tpu_torch.kernels import (
     fence_walk,
     match_depth,
     match_depth_masked,
+    seg_scan,
     symrank,
     walk_mask,
 )
 from orz_tpu_torch.ops import batched as ob
 from orz_tpu_torch.spec import FENCE, OTZ2_RO_CAP, PAD_FRONT, RING
 from torch_walk_inputs import (
+    SEG_SCAN_CASES,
     WALK_VARIANTS,
     fence_walk_inputs,
+    seg_scan_inputs,
     walk_inputs,
     walk_plain,
 )
@@ -190,10 +193,29 @@ def test_walk_kernels_match_plain_stress(cuda, n_extra):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["k1_dtype", "k1_contiguous", "walk_dtype",
-                                  "walk_shape", "walk_contiguous"])
+                                  "walk_shape", "walk_contiguous",
+                                  "scan_dtype", "scan_contiguous",
+                                  "scan_devices"])
 def test_wrappers_raise_on_bad_cuda_input(cuda, case):
-    """On CUDA tensors the K1 and K3/K4 wrappers raise on what their
-    kernels cannot take, and launch nothing."""
+    """On CUDA tensors the K1, K3/K4 and segmented-scan wrappers raise on
+    what their kernels cannot take, and launch nothing."""
+    if case.startswith("scan"):
+        first, marked = (t.to(cuda) for t in seg_scan_inputs("dense", 2,
+                                                             1000))
+        if case == "scan_dtype":
+            marked = marked.to(torch.uint8)
+        elif case == "scan_contiguous":  # every other column of a wider row
+            wide = torch.zeros((2, 2000), dtype=torch.bool, device=cuda)
+            wide[:, ::2] = first
+            first = wide[:, ::2]
+        else:
+            marked = marked.cpu()
+        before = seg_scan.launches
+        for fn in (seg_scan.last_marked, seg_scan.exclusive_count):
+            with pytest.raises(ValueError):
+                fn(first, marked)
+        assert seg_scan.launches == before
+        return
     if case.startswith("k1"):
         args = [t.to(cuda) for t in walk_inputs(2, 600, [[300, 200]])][:5]
         if case == "k1_dtype":
@@ -481,3 +503,54 @@ def test_spans_share_the_profilers_clock_on_card(cuda):
     assert all(b["start"] <= lo <= hi <= b["end"] for lo, hi in launches)
     assert all(any(s["start"] <= lo <= hi <= s["end"] for s in stages)
                for lo, hi in launches)
+
+
+def _seg_scan_equal(first, marked):
+    """Both segmented-scan kernels equal their plain versions."""
+    before = seg_scan.launches
+    for fn, plain in ((seg_scan.last_marked, seg_scan.last_marked_plain),
+                      (seg_scan.exclusive_count,
+                       seg_scan.exclusive_count_plain)):
+        got = fn(first, marked)
+        assert got.dtype == torch.int32
+        assert torch.equal(got, plain(first, marked))
+    assert seg_scan.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SEG_SCAN_CASES)
+@pytest.mark.parametrize("n", [1, seg_scan.TILE - 1, seg_scan.TILE,
+                               seg_scan.TILE + 1])
+def test_seg_scan_kernel_matches_plain(cuda, case, n):
+    """Rows of one slot, one tile less one, one tile and one tile and one
+    (rows after the first then start off 16-byte alignment: the kernel's
+    scalar loads and stores), B = 3."""
+    _seg_scan_equal(*(t.to(cuda) for t in seg_scan_inputs(case, 3, n, n)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tile_edges", "one_group", "no_marks"])
+def test_seg_scan_look_back_chain(cuda, case):
+    """Rows of 40 tiles and more: groups over 3 or more tiles (up to 38:
+    a look-back may pass more than one window of 32 descriptors), and
+    the same rows at an odd offset from the allocation (the scalar loads
+    on every row)."""
+    n = 40 * seg_scan.TILE + 77
+    first, marked = (t.to(cuda) for t in seg_scan_inputs(case, 2, n, 5))
+    _seg_scan_equal(first, marked)
+    buf = torch.zeros(2 * (2 * n + 1), dtype=torch.bool, device=cuda)
+    off_first = buf[1:2 * n + 1].view(2, n)
+    off_marked = buf[2 * n + 2:].view(2, n)
+    off_first.copy_(first)
+    off_marked.copy_(marked)
+    _seg_scan_equal(off_first, off_marked)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["sparse", "dense"])
+@pytest.mark.parametrize("bsz", [1, 4])
+def test_seg_scan_main_path_shape(cuda, case, bsz):
+    """B = 1 (the staged encoder) and B = 4 (a batch) at 8 MiB + PAD_FRONT
+    slots, group starts at densities 1e-4 and 0.5."""
+    _seg_scan_equal(*(t.to(cuda) for t in seg_scan_inputs(
+        case, bsz, (8 << 20) + PAD_FRONT, bsz)))

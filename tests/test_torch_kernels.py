@@ -7,7 +7,8 @@ port's own plan) against ``match_depth_pallas`` (interpret mode), K3 and
 K4 against ``walk_items_b`` / ``walk_mask_pallas`` (what the JAX package
 runs off the TPU) and against the Pallas walk kernels themselves
 (interpret mode, on stress rows), K5 against ``symrank_pallas_b``
-(interpret mode) and the sequential oracle.  All outputs are integers:
+(interpret mode) and the sequential oracle; the segmented scans' plain
+versions against a Python loop over groups.  All outputs are integers:
 tolerance 0.
 """
 
@@ -25,6 +26,7 @@ from orz_tpu_torch.kernels import (
     fence_walk,
     match_depth,
     match_depth_masked,
+    seg_scan,
     symrank,
     walk_mask,
 )
@@ -41,9 +43,12 @@ from orz_tpu_torch.spec import (
 )
 from tests.conftest import make_binary_like, make_text_like
 from torch_walk_inputs import (
+    SEG_SCAN_CASES,
     WALK_KINDS,
     WALK_VARIANTS,
     fence_walk_inputs,
+    seg_scan_inputs,
+    seg_scan_ref,
     walk_inputs,
     walk_plain,
 )
@@ -510,3 +515,40 @@ def test_symrank_step_quotient_is_floor_division():
         x = np.concatenate([16 * cnt * k,
                             np.minimum(16 * cnt * (k + 1) - 1, isum_max)])
         np.testing.assert_array_equal((x * m) >> 34, (x >> 4) // cnt)
+
+
+@pytest.mark.parametrize("bsz", [1, 4])
+@pytest.mark.parametrize("case", SEG_SCAN_CASES)
+def test_seg_scan_plain_matches_group_loop(case, bsz):
+    """Both segmented scans (the wrappers, which run the plain versions on
+    the CPU) against a Python loop over each row's groups, on rows of two
+    kernel tiles and 5 slots; and ``_words1_scan_b``'s predecessor of the
+    newest update against its earlier form, which clipped ``u1`` shifted
+    by one at the group start."""
+    first, marked = seg_scan_inputs(case, bsz, 2 * seg_scan.TILE + 5,
+                                    seed=bsz)
+    last, count = seg_scan_ref(first, marked)
+    u1 = seg_scan.last_marked(first, marked)
+    assert u1.dtype == torch.int32
+    np.testing.assert_array_equal(u1.numpy(), last)
+    got = seg_scan.exclusive_count(first, marked)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), count)
+    prev = torch.cat([torch.full_like(u1[:, :1], -1), u1[:, :-1]], dim=1)
+    old = torch.where(prev >= seg_scan._group_start(first), prev, -1)
+    np.testing.assert_array_equal(ob._prev_in_group(first, u1).numpy(),
+                                  old.numpy())
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "dim"])
+def test_seg_scan_rejects_bad_input(bad):
+    first, marked = seg_scan_inputs("dense", 2, 100)
+    if bad == "dtype":
+        marked = marked.int()
+    elif bad == "shape":
+        marked = marked[:, :99]
+    else:
+        first, marked = first[0], marked[0]
+    for fn in (seg_scan.last_marked, seg_scan.exclusive_count):
+        with pytest.raises(ValueError):
+            fn(first, marked)

@@ -1,6 +1,7 @@
 """Inputs built to stress the kernels' walks, shared by the CPU tests
 (``test_torch_kernels.py``) and the card tests (``test_torch_cuda.py``):
-K1/K2's candidate walk and K3/K4's fence-block walk.
+K1/K2's candidate walk, K3/K4's fence-block walk and the segmented scans'
+groups across tiles.
 
 Imports neither jax nor the repository's conftest, so that the card tests
 run on a machine without jax."""
@@ -11,7 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from orz_tpu_torch.device.host import N_DW
-from orz_tpu_torch.kernels import match_depth
+from orz_tpu_torch.kernels import match_depth, seg_scan
 from orz_tpu_torch.spec import FENCE, OTZ2_RO_CAP, PAD_FRONT, RING
 
 # K1's and K2's variants: (ro_cap, near_depth, ro_cap_near)
@@ -122,3 +123,49 @@ def fence_walk_inputs(seed: int, n: int, lens: list[int],
             nxt[b, pos] = np.clip(pos + step, -2**31, 2**31 - 1)
     return (torch.from_numpy(nxt.astype(np.int32)),
             torch.tensor(lens, dtype=torch.int32))
+
+
+# the segmented scans' cases (``seg_scan_inputs``)
+SEG_SCAN_CASES = ("no_marks", "all_marked", "all_first", "one_group",
+                  "tile_edges", "sparse", "dense")
+
+
+def seg_scan_inputs(case: str, bsz: int, n: int, seed: int = 0):
+    """(first, marked), (B, n) bool: "no_marks" (groups at density 0.01,
+    nothing marked); "all_marked"; "all_first" (every slot a group start,
+    half marked); "one_group" (no group start: the row is one group);
+    "tile_edges" (groups that start one slot before, at and after a tile
+    edge, then one over the rest of the row, 0.1% marked, so the carry
+    crosses every tile after it); "sparse" and "dense" (groups at density
+    1e-4 and 0.5, half marked).  Row b's first flag is set when b is odd:
+    a row's first slot starts a group either way."""
+    rng = np.random.default_rng(seed)
+    density, marks = {"no_marks": (0.01, 0.0), "all_marked": (0.01, 1.0),
+                      "all_first": (1.0, 0.5), "one_group": (0.0, 0.3),
+                      "tile_edges": (0.0, 0.001), "sparse": (1e-4, 0.5),
+                      "dense": (0.5, 0.5)}[case]
+    first = rng.random((bsz, n)) < density
+    marked = rng.random((bsz, n)) < marks
+    if case == "tile_edges":
+        t = seg_scan.TILE
+        first[:, [p for p in (t - 1, t, t + 1, 2 * t - 3) if p < n]] = True
+    first[:, 0] = np.arange(bsz) % 2 == 1
+    return torch.from_numpy(first), torch.from_numpy(marked)
+
+
+def seg_scan_ref(first, marked):
+    """(last_marked, exclusive_count) as int32 numpy arrays, by a Python
+    loop over each row's groups."""
+    first, marked = first.numpy(), marked.numpy()
+    last = np.empty(first.shape, np.int32)
+    count = np.empty(first.shape, np.int32)
+    for b in range(first.shape[0]):
+        starts = np.flatnonzero(first[b]).tolist()
+        for g0, g1 in zip([0] + starts, starts + [first.shape[1]]):
+            newest, cnt = -1, 0
+            for i in range(g0, g1):
+                count[b, i] = cnt
+                if marked[b, i]:
+                    newest, cnt = i, cnt + 1
+                last[b, i] = newest
+    return last, count
