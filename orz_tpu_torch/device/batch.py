@@ -59,8 +59,9 @@ from orz_tpu_torch.spec import (
 # the last reset.
 otz1_fallbacks = 0
 # Batches sent whole to the staged encoder (an empty segment, or symrank
-# skew), since the last reset.
+# skew), and the segments they held, since the last reset.
 staged_batches = 0
+staged_segments = 0
 
 
 def quality_scan_body(bufs, seg_lens, mask0, ni0, head):
@@ -222,6 +223,7 @@ def _encode_batch(datas, level, chunk_input, rings_mode, cap, device, stage):
 
     def staged():  # JAX's per-segment route for the whole batch
         trace.count(globals(), "staged_batches")
+        trace.count(globals(), "staged_segments", len(datas))
         with trace.span("staged"):
             return [pipeline.encode_segment_staged(d, level, chunk_input,
                                                    rings_mode=rings_mode,

@@ -8,7 +8,8 @@ batched branch: segments are read ``batch`` at a time and encoded by one
 ``encode_batch`` call, with up to ``ORZ_INFLIGHT`` batches in flight (read
 at each call; default 1, as in the original); an EOF leftover batch is
 padded with copies of its first segment and the padding's payloads are
-dropped, so that it reuses the batch's shapes.  A batch call that raises
+dropped, so that it reuses the batch's shapes (``batch_slots`` and
+``pad_slots`` count the slots and the copies).  A batch call that raises
 is retried segment by segment through ``encode_one``, in the caller's
 thread.  ``encoded_segments`` is that loop; ``orz_tpu_torch/checkpoint.py``
 encodes per segment instead (``pcontainer.pooled_segments``), as the
@@ -25,6 +26,12 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from orz_tpu_torch import trace
 from orz_tpu_torch.pcontainer import frame_segments, read_segment
 from orz_tpu_torch.progress import ProgressLogger
+
+
+# Slots of the batch calls made, and how many of them were padding copies,
+# since the last reset.
+batch_slots = 0
+pad_slots = 0
 
 
 class _Serial:
@@ -59,6 +66,8 @@ def encoded_segments(source, encode_batch, encode_one, segment_size: int,
     inflight = max(1, int(os.environ.get("ORZ_INFLIGHT", "1")))
 
     def run(segs, parent):  # parent: the caller's span, for a pool thread
+        trace.count(globals(), "batch_slots", bsz)
+        trace.count(globals(), "pad_slots", bsz - len(segs))
         with trace.under(parent):
             return encode_batch(segs + [segs[0]] * (bsz - len(segs)))[:len(segs)]
 

@@ -2,10 +2,12 @@
 
 Counters are plain module ints (``launches`` in each kernel module,
 ``device.container.segment_retries`` and ``decoder_fallbacks``,
-``device.batch.otz1_fallbacks`` and ``staged_batches``, ``host_syncs``
-here) that readers read and reset as attributes.  Code adds to them only
-through ``count``, under one lock: batches in flight, the mesh's device
-threads and ``ORZ_PER_SEGMENT``'s pool add from several threads.
+``device.batch.otz1_fallbacks``, ``staged_batches`` and
+``staged_segments``, ``device.pcontainer.batch_slots`` and ``pad_slots``,
+``host_syncs`` here) that readers read and reset as attributes.  Code adds
+to them only through ``count``, under one lock: batches in flight, the
+mesh's device threads and ``ORZ_PER_SEGMENT``'s pool add from several
+threads.
 
 Spans are off until ``start()``.  ``span(name, **attrs)`` then records the
 span's name, start and end, its parent, its thread, the ``encode`` span it
@@ -39,13 +41,13 @@ host_syncs = 0
 _count_lock = threading.Lock()
 
 
-def count(namespace: dict, name: str = "launches") -> None:
-    """Add one to the module counter ``namespace[name]`` (``namespace`` is
+def count(namespace: dict, name: str = "launches", n: int = 1) -> None:
+    """Add `n` to the module counter ``namespace[name]`` (``namespace`` is
     the module's ``globals()``) under one lock: ``x += 1`` on a global can
     lose an update between threads.  Readers read and reset the counter as
     a plain module attribute."""
     with _count_lock:
-        namespace[name] += 1
+        namespace[name] += n
 
 
 class _Off:
