@@ -89,8 +89,9 @@ def segment_encoders(level: int = 2, segment_size: int = DEFAULT_SEGMENT_SIZE,
     cap = _bucket_capacity(segment_size)
 
     def encode_batch(segs):
-        # full segments share the fixed bucket; a short leftover batch (or a
-        # sub-segment-size input) takes its own smaller bucket
+        # full segments share the fixed bucket; a batch of short segments
+        # only (a file's tail alone, or a sub-segment-size input) takes the
+        # smaller bucket of its longest; B is the segments it is given
         c = min(cap, _bucket_capacity(max(len(s) for s in segs)))
         return encode_segments_batch(segs, level, chunk_input,
                                      rings_mode=rings_mode, cap=c,

@@ -6,14 +6,17 @@ are the host container's (``orz_tpu_torch/pcontainer.py``,
 ``orz_tpu_torch/ioutil.py``).  ``pipe_encode`` here is the original's
 batched branch: segments are read ``batch`` at a time and encoded by one
 ``encode_batch`` call, with up to ``ORZ_INFLIGHT`` batches in flight (read
-at each call; default 1, as in the original); an EOF leftover batch is
-padded with copies of its first segment and the padding's payloads are
-dropped, so that it reuses the batch's shapes (``batch_slots`` and
-``pad_slots`` count the slots and the copies).  A batch call that raises
-is retried segment by segment through ``encode_one``, in the caller's
-thread.  ``encoded_segments`` is that loop; ``orz_tpu_torch/checkpoint.py``
-encodes per segment instead (``pcontainer.pooled_segments``), as the
-original's ``checkpointed_encode`` does.  ``tests/test_torch_host.py`` and
+at each call; default 1, as in the original).  An EOF leftover batch is
+encoded at its own segment count.  The original pads it with copies of
+its first segment and drops their payloads, so that XLA reuses the
+program compiled for the full batch's shapes; the port's ops and kernels
+take the batch size at run time, and a segment's payload does not depend
+on its batch-mates, so the port needs no copies and writes the same
+bytes.  A batch call that raises is retried segment by segment through
+``encode_one``, in the caller's thread.  ``encoded_segments`` is that
+loop; ``orz_tpu_torch/checkpoint.py`` encodes per segment instead
+(``pcontainer.pooled_segments``), as the original's
+``checkpointed_encode`` does.  ``tests/test_torch_host.py`` and
 ``tests/test_torch_inflight.py`` hold the bytes to the original's.
 """
 
@@ -28,10 +31,13 @@ from orz_tpu_torch.pcontainer import frame_segments, read_segment
 from orz_tpu_torch.progress import ProgressLogger
 
 
-# Slots of the batch calls made, and how many of them were padding copies,
-# since the last reset.
+# Since the last reset: the slots (segments) of the batch calls made, the
+# padding copies among them (none since a short batch runs at its own
+# size: the benchmark's pad_share reads 0), and the calls made with fewer
+# than `batch` segments.
 batch_slots = 0
 pad_slots = 0
+short_batches = 0
 
 
 class _Serial:
@@ -66,10 +72,11 @@ def encoded_segments(source, encode_batch, encode_one, segment_size: int,
     inflight = max(1, int(os.environ.get("ORZ_INFLIGHT", "1")))
 
     def run(segs, parent):  # parent: the caller's span, for a pool thread
-        trace.count(globals(), "batch_slots", bsz)
-        trace.count(globals(), "pad_slots", bsz - len(segs))
+        trace.count(globals(), "batch_slots", len(segs))
+        if len(segs) < bsz:
+            trace.count(globals(), "short_batches")
         with trace.under(parent):
-            return encode_batch(segs + [segs[0]] * (bsz - len(segs)))[:len(segs)]
+            return encode_batch(segs)
 
     if inflight == 1:
         pool = _Serial()

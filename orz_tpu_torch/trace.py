@@ -3,11 +3,11 @@
 Counters are plain module ints (``launches`` in each kernel module,
 ``device.container.segment_retries`` and ``decoder_fallbacks``,
 ``device.batch.otz1_fallbacks``, ``staged_batches`` and
-``staged_segments``, ``device.pcontainer.batch_slots`` and ``pad_slots``,
-``host_syncs`` here) that readers read and reset as attributes.  Code adds
-to them only through ``count``, under one lock: batches in flight, the
-mesh's device threads and ``ORZ_PER_SEGMENT``'s pool add from several
-threads.
+``staged_segments``, ``device.pcontainer.batch_slots``, ``pad_slots`` and
+``short_batches``, ``host_syncs`` here) that readers read and reset as
+attributes.  Code adds to them only through ``count``, under one lock:
+batches in flight, the mesh's device threads and ``ORZ_PER_SEGMENT``'s
+pool add from several threads.
 
 Spans are off until ``start()``.  ``span(name, **attrs)`` then records the
 span's name, start and end, its parent, its thread, the ``encode`` span it

@@ -64,6 +64,17 @@ def _data(seed: int, n: int) -> bytes:
     return bytes(out[:n])
 
 
+def _binary(seed: int, n: int) -> bytes:
+    """Blocks of 32 noise bytes, each followed by a 32-byte run: about 0.53
+    items a byte, so an 8 MiB segment takes MID2's 8,388,608-item bucket."""
+    rng = np.random.default_rng(seed)
+    out = bytearray()
+    while len(out) < n:
+        out += rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+        out += bytes([int(rng.integers(256))]) * 32
+    return bytes(out[:n])
+
+
 @pytest.fixture(scope="module")
 def cuda():
     if not torch.cuda.is_available():
@@ -315,6 +326,36 @@ def test_cuda_payloads_equal_cpu_payloads(batch, level, rings_mode):
     want = encode_segments_batch(segs, level, rings_mode=rings_mode,
                                  device="cpu")
     assert got == want
+    for seg, payload in zip(segs, got):
+        assert decode_segment(payload) == seg
+
+
+@pytest.mark.cuda
+def test_short_batches_equal_the_padded_batch_at_8mib(cuda, monkeypatch):
+    """At 8 MiB l2 (the default schedule), a batch of 1, 2 or 3 segments
+    gives the payloads that they take in a batch of 4 padded with copies of
+    the first, as the JAX package's loop pads a file's last batch.  The
+    first segment is binary and takes MID2's 8,388,608-item bucket; the
+    third is a short text tail."""
+    import os
+
+    from orz_tpu_torch.device import batch as tb
+    from orz_tpu_torch.device.container import decode_segment, segment_encoders
+
+    for k in [k for k in os.environ if k.startswith(("OTZ", "ORZ"))]:
+        monkeypatch.delenv(k)
+    m2_caps = []
+    m2_cap_for = tb.m2_cap_for
+    monkeypatch.setattr(tb, "m2_cap_for",
+                        lambda n: m2_caps.append(m2_cap_for(n)) or m2_caps[-1])
+    n = 8 << 20
+    segs = [_binary(31, n), _data(32, n), _data(33, n - 1234567)]
+    encode_batch, _ = segment_encoders(2, device="cuda")
+    for k in (1, 2, 3):
+        padded = encode_batch(segs[:k] + segs[:1] * (4 - k))
+        got = encode_batch(segs[:k])
+        assert got == padded[:k], k
+    assert m2_caps == [1 << 23] * 6
     for seg, payload in zip(segs, got):
         assert decode_segment(payload) == seg
 

@@ -197,6 +197,46 @@ def test_real_encoder_l2_equal_at_each_inflight(monkeypatch):
     assert container.torch_decode_bytes(streams["2"]) == data
 
 
+# segments of 4096 bytes in the input, the last one short: a lone short
+# segment; a full batch and a leftover of 1; a full batch and a leftover
+# of 3
+SHORT_BATCH_SEGMENTS = [1, 5, 7]
+
+
+@pytest.mark.parametrize("level", [1, 2])
+@pytest.mark.parametrize("n_segs", SHORT_BATCH_SEGMENTS)
+def test_short_batch_equals_the_padded_loop(monkeypatch, level, n_segs):
+    """The real encoder at batch 4: the port's loop, which encodes a file's
+    last batch at its own segment count, writes the bytes of the JAX
+    package's loop, which pads that batch to 4 with copies of its first
+    segment and drops their payloads; both decode to the input."""
+    from orz_tpu_torch.device import container
+
+    monkeypatch.setenv("OTZ2_SCHEDULE", "96x1,384x2")
+    monkeypatch.delenv("ORZ_INFLIGHT", raising=False)
+    seg = 4096
+    data = _text(n_segs * seg - 1000, 0x1F4 + n_segs)
+    encode_batch, _ = container.segment_encoders(level, segment_size=seg,
+                                                 device="cpu")
+    calls = []
+
+    def recorded(segs):
+        calls.append(len(segs))
+        return encode_batch(segs)
+
+    def no_retry(seg):
+        raise AssertionError("a batch call failed and was retried")
+
+    got = ours(data, seg, 4, recorded, no_retry)[0]
+    port_calls = calls[:]
+    calls.clear()
+    want = theirs(data, seg, 4, recorded, no_retry)[0]
+    assert port_calls == [4] * (n_segs // 4) + [n_segs % 4]
+    assert calls == [4] * len(port_calls)
+    assert got == want
+    assert container.torch_decode_bytes(got) == data
+
+
 def test_counter_is_exact_under_threads():
     """Eight threads add to one counter through the locked helper.  The
     counter's namespace gives up the interpreter lock between the read and

@@ -2,10 +2,12 @@
 stub encoders (no device stage runs, each test well under a second).
 
 ``device/pcontainer.py`` ``encoded_segments`` counts the slots of each
-batch call (``batch_slots``) and the padding copies among them
-(``pad_slots``); ``device/batch.py`` counts the segments of the batches it
-sends whole to the staged encoder (``staged_segments``) beside the batches
-(``staged_batches``).  All values are integers: tolerance 0.
+batch call (``batch_slots``: one a segment, since an EOF leftover batch is
+encoded at its own size), the padding copies among them (``pad_slots``:
+none) and the calls with fewer than ``batch`` segments
+(``short_batches``); ``device/batch.py`` counts the segments of the
+batches it sends whole to the staged encoder (``staged_segments``) beside
+the batches (``staged_batches``).  All values are integers: tolerance 0.
 """
 
 import io
@@ -29,25 +31,30 @@ def segments(n: int) -> list[bytes]:
     return segs
 
 
-# segments in the input: (batch slots, padding slots), worked out by hand
-# at 4 a batch
-SLOTS = {0: (0, 0), 1: (4, 3), 4: (4, 0), 5: (8, 3), 7: (8, 1)}
+# segments in the input: (batch slots, padding slots), the segments of each
+# batch call, and the calls with fewer than 4, worked out by hand at 4 a
+# batch
+SLOTS = {0: (0, 0), 1: (1, 0), 4: (4, 0), 5: (5, 0), 7: (7, 0)}
+CALLS = {0: [], 1: [1], 4: [4], 5: [4, 1], 7: [4, 3]}
+SHORT = {0: 0, 1: 1, 4: 0, 5: 1, 7: 1}
 
 
 @pytest.mark.parametrize("inflight", ["1", "2"])
 @pytest.mark.parametrize("n", sorted(SLOTS))
 def test_batch_and_pad_slots(monkeypatch, n, inflight):
-    """Each batch call adds its 4 slots and its padding copies; the
-    payloads of the copies never reach the output."""
+    """Each batch call adds one slot a segment and no padding copy; the
+    file's last batch is called with the segments left, and slot k's
+    payload is segment k's, in file order."""
     monkeypatch.setenv("ORZ_INFLIGHT", inflight)
     monkeypatch.setattr(tpc, "batch_slots", 0)
     monkeypatch.setattr(tpc, "pad_slots", 0)
+    monkeypatch.setattr(tpc, "short_batches", 0)
     calls = []
 
     def encode_batch(segs):
         calls.append(len(segs))
-        # slot k's payload names its slot: a copy's payload differs from
-        # its original's
+        # slot k's payload names its slot: a payload in the wrong slot
+        # or the wrong order differs from the one wanted
         return [s + b"|%d" % k for k, s in enumerate(segs)]
 
     segs = segments(n)
@@ -55,8 +62,9 @@ def test_batch_and_pad_slots(monkeypatch, n, inflight):
                                     lambda s: s, SEG, BATCH))
     want = [(len(s), s + b"|%d" % (i % BATCH)) for i, s in enumerate(segs)]
     assert out == want
-    assert calls == [BATCH] * (-(-n // BATCH))
+    assert calls == CALLS[n]
     assert (tpc.batch_slots, tpc.pad_slots) == SLOTS[n]
+    assert tpc.short_batches == SHORT[n]
 
 
 def test_staged_segments_counts_an_empty_segments_batch(monkeypatch):
