@@ -38,7 +38,7 @@
 // Every walk keeps the 32-bit word of bits it is in in a register and
 // stores it when it leaves the word: positions only grow along a walk.
 // The design measured against this one, one lane walking the whole staged
-// block (orz_tpu_torch/tools/kernel_variants.py), took twice as long.
+// block, took twice as long.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

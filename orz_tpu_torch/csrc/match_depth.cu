@@ -56,7 +56,7 @@
 // deeper dwords are read from its record, not kept in registers.
 // Staging the window copies 72 bytes a slot, as the per-slot loop it
 // replaces read them; at depth 8 that copy is most of the time.
-// Tiles of 512 slots measured slower (`tools/kernel_variants.py`).
+// Tiles of 512 slots measured slower.
 
 // K2: one CTA per tile of kTile = 1024 consecutive sorted slots of one row
 // (256 threads, 4 slots each, a warp on 32 consecutive slots).

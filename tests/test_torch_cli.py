@@ -3,7 +3,9 @@
 
 ``main([...], device="cpu")`` runs the CLI on the CPU.  Its ORZT files are
 held to ``python -m orz_tpu.cli encode -b tpu``'s at l1 and at l2 with
-``OTZ2=0`` (the JAX chain, run once per case), and to the port's
+``OTZ2=0`` (recorded in ``tests/torch_jax_records.json``, records
+``cli-l1``, ``cli-l2-OTZ2=0`` and ``checkpoint-l2``, written by
+``tests/torch_parity_ref.py``), and to the port's
 ``torch_encode_bytes`` at the l2 default (``OTZ2_SCHEDULE=96x1,384x2``,
 which ``tests/test_torch_l2.py`` holds to the JAX chain); they decode
 through the CLI.  Segments are cut to SEG = 32 KiB in both CLIs, so three
@@ -11,8 +13,8 @@ full segments at ``-p 2`` make two batches of one (B=2, cap 1<<15) shape
 bucket.  A ``--checkpoint`` encode (each segment through the staged
 encoder, as ``-b tpu --checkpoint`` does), fresh or resumed after a crash,
 is byte-identical at l1 to the plain encode, and at l2 (on SEG2 = 4 KiB
-segments, one JAX program set) to ``python -m orz_tpu.cli encode -b tpu
---checkpoint``'s file.  All outputs are bytes: tolerance 0.
+segments) to ``python -m orz_tpu.cli encode -b tpu --checkpoint``'s file.
+All outputs are bytes (files compared by ``stream_digests``): tolerance 0.
 """
 
 import functools
@@ -29,8 +31,9 @@ torch = pytest.importorskip("torch")
 from orz_tpu_torch import checkpoint, cli
 from orz_tpu_torch.device import container as tc
 from orz_tpu_torch.device import pipeline as tp
+from orz_tpu_torch.tools.parity_data import stream_digests
 from tests.conftest import make_binary_like, make_text_like
-from torch_jax_cache import shared
+from tests.torch_parity_ref import expect
 
 torch.set_num_threads(2)
 
@@ -54,56 +57,34 @@ def files(tmp_path, data):
 
 
 def _segments(monkeypatch, seg: int) -> None:
-    """seg-byte segments in both CLIs' encode paths, --checkpoint's too."""
-    from orz_tpu.device import container as jc
-
-    for mod, name in ((tc, "torch_encode"), (jc, "tpu_encode")):
-        monkeypatch.setattr(mod, name, functools.partial(
-            getattr(mod, name), segment_size=seg))
+    """seg-byte segments in the CLI's encode paths, --checkpoint's too (the
+    recorded JAX files had the same patch: ``patches.segment_size``)."""
+    monkeypatch.setattr(tc, "torch_encode", functools.partial(
+        tc.torch_encode, segment_size=seg))
     monkeypatch.setattr(tc, "DEFAULT_SEGMENT_SIZE", seg)
-    monkeypatch.setattr(jc, "DEFAULT_SEGMENT_SIZE", seg)
 
 
 @pytest.fixture
 def small_segments(monkeypatch):
-    """SEG-byte segments in both CLIs' encode paths."""
+    """SEG-byte segments in the CLI's encode paths."""
     for k in ("OTZ2", "OTZ2_SCHEDULE", "OTZ2_ITERS", "OTZ2_SHIFTS",
               "ORZ_PER_SEGMENT"):
         monkeypatch.delenv(k, raising=False)
     _segments(monkeypatch, SEG)
 
 
-def _jax_checkpoint_file(data2: bytes) -> bytes:
-    """JAX's ``encode -b tpu -l 2 -p 2 --checkpoint`` file of data2, with
-    SEG2-byte segments (the caller's patch)."""
-    import tempfile
-
-    from orz_tpu.cli import main as jax_main
-
-    with tempfile.TemporaryDirectory() as tmp:
-        src, out = os.path.join(tmp, "in.bin"), os.path.join(tmp, "out.orz")
-        with open(src, "wb") as f:
-            f.write(data2)
-        assert jax_main(["encode", "-s", "-l", "2", "-b", "tpu", "-p", "2",
-                         "--checkpoint", os.path.join(tmp, "ck.json"), src,
-                         out]) == 0
-        with open(out, "rb") as f:
-            return f.read()
-
-
 @pytest.fixture(scope="module")
-def jax_checkpoint_l2(data, tmp_path_factory):
-    """JAX's ``encode -b tpu -l 2 --checkpoint`` file of data2 (three SEG2
-    segments and a short one), and data2; once per run."""
+def jax_checkpoint_l2(data):
+    """The ``stream_digests`` of JAX's ``encode -b tpu -l 2 -p 2
+    --checkpoint`` file of data2 (three SEG2 segments and a short one),
+    recorded (``checkpoint-l2``), and data2."""
     data2 = data[:3 * SEG2] + data[:1000]
     with pytest.MonkeyPatch.context() as mp:
         for k in ("OTZ2", "OTZ2_ITERS", "OTZ2_SHIFTS", "ORZ_PER_SEGMENT"):
             mp.delenv(k, raising=False)
         mp.setenv("OTZ2_SCHEDULE", SCHEDULE)
-        _segments(mp, SEG2)
-        want = shared(tmp_path_factory, f"jax_checkpoint_seg{SEG2}",
-                      _jax_checkpoint_file, data2)
-    return want, data2
+        want = expect("checkpoint-l2", data2, {"segment_size": SEG2})
+    return want["stream"], data2
 
 
 def _run(argv) -> int:
@@ -119,17 +100,15 @@ def _decoded(path, tmp_path) -> bytes:
 @pytest.mark.parametrize("level,otz2", [(1, None), (2, "0")])
 def test_cli_matches_jax_cli(files, data, small_segments, monkeypatch, level,
                              otz2):
-    from orz_tpu.cli import main as jax_main
-
     src, tmp = files
     if otz2 is not None:
         monkeypatch.setenv("OTZ2", otz2)
-    ours, theirs = tmp / "ours.orz", tmp / "theirs.orz"
+    name = "cli-l1" if otz2 is None else f"cli-l{level}-OTZ2={otz2}"
+    want = expect(name, data, {"segment_size": SEG})["stream"]
+    ours = tmp / "ours.orz"
     assert _run(["encode", "-s", "-l", level, "-b", "gpu", "-p", 2, src,
                  ours]) == 0
-    assert jax_main(["encode", "-s", "-l", str(level), "-b", "tpu", "-p",
-                     "2", str(src), str(theirs)]) == 0
-    assert ours.read_bytes() == theirs.read_bytes()
+    assert stream_digests(ours.read_bytes()) == want
     assert _decoded(ours, tmp) == data
 
 
@@ -184,7 +163,7 @@ def test_checkpoint_l2_matches_jax_checkpoint(tmp_path, small_segments,
     src, out, ck = tmp_path / "in.bin", tmp_path / "out.orz", tmp_path / "c"
     src.write_bytes(data2)
     assert _checkpoint_run(src, out, ck, 2) == 0
-    assert out.read_bytes() == want
+    assert stream_digests(out.read_bytes()) == want
     assert not ck.exists()
     assert _decoded(out, tmp_path) == data2
 
@@ -216,8 +195,8 @@ def test_checkpoint_resume_after_crash(tmp_path, data, small_segments,
     else:
         seg = SEG
         data = data + data[:1000]
-        want = tc.torch_encode_bytes(data, level=1, batch=2,
-                                     segment_size=seg, device="cpu")
+        want = stream_digests(tc.torch_encode_bytes(
+            data, level=1, batch=2, segment_size=seg, device="cpu"))
     segments = [data[i:i + seg] for i in range(0, len(data), seg)]
     assert len(segments) == 4 and len(set(segments)) == 4
     src, tmp = tmp_path / "in.bin", tmp_path
@@ -247,7 +226,7 @@ def test_checkpoint_resume_after_crash(tmp_path, data, small_segments,
     with open(out, "ab") as f:  # resume must truncate what lies past it
         f.write(b"GARBAGE-PAST-CHECKPOINT")
     assert _checkpoint_run(src, out, ck, level) == 0
-    assert out.read_bytes() == want
+    assert stream_digests(out.read_bytes()) == want
     assert not ck.exists()
 
 

@@ -3,7 +3,9 @@
 On the CPU every kernel wrapper runs its plain torch version; these tests
 hold those plain versions to the JAX package at B=2, cap=1<<15, on arrays
 from a real FRONT: K1 and K2 (masked, on the FRONT parse's mask and the
-port's own plan) against ``match_depth_pallas`` (interpret mode), K3 and
+port's own plan) against ``match_depth_pallas`` (interpret mode; K1's
+outputs recorded in ``tests/torch_jax_records.json``, record
+``match-depth``, by ``tests/torch_parity_ref.py``), K3 and
 K4 against ``walk_items_b`` / ``walk_mask_pallas`` (what the JAX package
 runs off the TPU) and against the Pallas walk kernels themselves
 (interpret mode, on stress rows), K5 against ``symrank_pallas_b``
@@ -42,6 +44,7 @@ from orz_tpu_torch.spec import (
     _FAR_GATE,
 )
 from tests.conftest import make_binary_like, make_text_like
+from tests.torch_parity_ref import digest, expect
 from torch_walk_inputs import (
     SEG_SCAN_CASES,
     WALK_KINDS,
@@ -90,20 +93,14 @@ def items(batch):
 
 @pytest.mark.parametrize("depth", [4, 8, 32])
 def test_match_depth_plain_matches_pallas(candidates, depth):
-    from orz_tpu.ops.match_pallas import match_depth_pallas
-
     msk, msp, rank_s, dw_s, end = candidates
+    rows = expect("match-depth", list(candidates))["depths"][str(depth)]
     got = match_depth.match_depth(msk, msp, rank_s, dw_s, end, depth)
     assert int((got[0] >= 0).sum()) > 1000  # real candidates were found
-    for b in range(msk.shape[0]):
-        want = match_depth_pallas(
-            jnp.asarray(msk[b].numpy()), jnp.asarray(msp[b].numpy()),
-            jnp.asarray(rank_s[b].numpy()),
-            tuple(jnp.asarray(dw_s[b, t].numpy()) for t in range(N_DW)),
-            jnp.int32(int(end[b])), depth=depth,
-        )
+    assert len(rows) == msk.shape[0]
+    for b, want in enumerate(rows):
         for g, w in zip(got, want):
-            np.testing.assert_array_equal(g[b].numpy(), np.asarray(w))
+            assert digest(g[b]) == w
 
 
 def _masked_candidates(bufs, lens, mask):

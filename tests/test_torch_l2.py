@@ -3,7 +3,7 @@ on the CPU.
 
 The JAX programs that ``orz_tpu.device.batch.encode_segments_batch`` runs
 at level 2 (b_front_jit, b_scan_jit, b_tail_jit, b_mid2_jit, b_back_jit)
-run once per process on B=2 padded (cap 1<<15) buffers, with
+ran on B=2 padded (cap 1<<15) buffers, with
 ``OTZ2_SCHEDULE=96x1,384x2``: a 96-shift scan step with no near gating,
 384-shift full steps gated at OTZ2_NEAR=96, and the two-tier 384-shift
 conform analyses, i.e. every code path of the default 96x1+384x11 at a
@@ -11,9 +11,12 @@ third of its cost.  Every stage output of the port equals JAX's, including
 MID2's anomalous branch, and so do the payloads (JAX's are assembled from
 its BACK outputs by its own ``assemble_segment_np``, as its
 ``encode_segments_batch`` does when every repair succeeded), which decode
-through the native decoder.  The port's stage outputs are those of one run
-of its ``encode_segments_batch``, read through its ``stage`` hook.  All
-outputs are integers: tolerance 0.
+through the native decoder.  JAX's outputs are recorded
+(``tests/torch_jax_records.json``, record ``l2-chain``, written by
+``tests/torch_parity_ref.py``): each array as the SHA-256 of its values.
+The port's stage outputs are those of one run of its
+``encode_segments_batch``, read through its ``stage`` hook.  All outputs
+are integers: tolerance 0.
 """
 
 import numpy as np
@@ -23,16 +26,14 @@ torch = pytest.importorskip("torch")
 
 from orz_tpu_torch.device import batch as tb
 from orz_tpu_torch.device.container import decode_segment
-from orz_tpu_torch.device.host import _bucket, pad_batch
 from orz_tpu_torch.ops import batched as ob
-from orz_tpu_torch.spec import CHUNK_INPUT_DEFAULT, n_chunks_for, otz2_schedule
+from orz_tpu_torch.spec import otz2_schedule
 from tests.conftest import make_binary_like, make_text_like
-from torch_jax_cache import jax_front, shared
+from tests.torch_parity_ref import digest, expect, payload_digests
 
 torch.set_num_threads(2)
 
 CAP = 1 << 15
-C_MAX = n_chunks_for(CAP, CHUNK_INPUT_DEFAULT)
 SCHEDULE = "96x1,384x2"
 
 
@@ -49,87 +50,34 @@ def schedule_env():
         yield
 
 
-def _np(tree):
-    if isinstance(tree, tuple):
-        return tuple(_np(t) for t in tree)
-    return np.asarray(tree)
-
-
 @pytest.fixture(scope="module")
-def jax_chain(segs, schedule_env, tmp_path_factory):
-    import jax.numpy as jnp
-
-    from orz_tpu.device.batch import (
-        b_back_jit,
-        b_mid2_jit,
-        b_scan_jit,
-        b_tail_jit,
-    )
-    from orz_tpu.device.pipeline import assemble_segment_np
-    from orz_tpu.golden.bitio import BitEncoder
-    from orz_tpu.ops.symrank_pallas import RB_BLK
-
+def jax_chain(segs, schedule_env):
+    """JAX's stage outputs, recorded (``tests/torch_jax_records.json``,
+    ``l2-chain``)."""
     head, tail, c_shifts = tb.quality_split(otz2_schedule(2))
     assert (head, tail, c_shifts) == ((96,), (384, 384), 384)
-    lens = jnp.asarray(pad_batch(segs, CAP)[1])
-    # b_front_jit at depth 32, shared with tests/test_torch_slice.py (the
-    # same segments): once per run
-    front = shared(tmp_path_factory, "front", jax_front, segs, CAP, 32)
-    st, ni, pk1, bq, bro, bufs_d, mask0 = (jnp.asarray(a) for a in front)
-    plan, mask, ni_h = b_scan_jit(bufs_d, lens, mask0, ni, head)
-    it_a, it_b = b_tail_jit(bufs_d, lens, plan, st, ni, pk1, mask, tail,
-                            c_shifts)
-    m2_cap = tb.m2_cap_for(int(max(np.max(it_a[1]), np.max(it_b[1]))))
-    mid2 = b_mid2_jit(bufs_d, lens, it_a, it_b, m2_cap)
-    # the FRONT parse as iterate B: its matches target non-starts and
-    # demote heavily, which takes the anomalous branch
-    anom = b_mid2_jit(bufs_d, lens, it_a, (st, ni, pk1, it_b[3], it_b[4]),
-                      m2_cap)
-    items, ok, r1, rounds = mid2[:4]
-    assert np.asarray(ok).all()  # no segment takes the OTZ1 fallback
-    r1_h, r_h = np.asarray(r1), np.asarray(rounds)
-    out = b_back_jit(items, CHUNK_INPUT_DEFAULT, C_MAX,
-                     _bucket(max(int(r1_h.max()), 1), RB_BLK),
-                     _bucket(max(int((r_h - r1_h).max()), 1), 4 * RB_BLK))
-    metas, words = np.asarray(out.meta), np.asarray(out.words)
-    payloads = []
-    for b, seg in enumerate(segs):
-        enc = BitEncoder()
-        enc.encode_varint(len(seg))
-        enc.encode_varint(CHUNK_INPUT_DEFAULT)
-        payloads.append(assemble_segment_np(enc, metas[b], words[b],
-                                            len(seg), CHUNK_INPUT_DEFAULT,
-                                            rings_mode=1))
-    return {
-        "plan": _np(tuple(plan)), "mask": _np((mask, ni_h)),
-        "it_a": _np(it_a), "it_b": _np(it_b), "m2_cap": m2_cap,
-        "mid2": _np(tuple(mid2[0]) + tuple(mid2[1:])),
-        "anom": _np(tuple(anom[0]) + tuple(anom[1:])),
-        "back": (metas, words),
-        "payloads": payloads,
-    }
+    return expect("l2-chain", segs)
 
 
 def _eq(got, want, what):
     got = got.numpy() if isinstance(got, torch.Tensor) else got
-    assert got.shape == want.shape, what
-    np.testing.assert_array_equal(got.astype(np.int64),
-                                  want.astype(np.int64), err_msg=what)
+    assert digest(got) == want, what
 
 
 def _eq_iterate(got, want, what):
     st, ni, *rest = got
-    _eq(ni, want[1], f"{what} n_items")
-    for b, k in enumerate(want[1]):  # starts past n_items are filler
-        _eq(st[b, :k], want[0][b, :k], f"{what} starts")
-    for name, g, w in zip(("pk1", "bestq2", "bestlen2"), rest, want[2:]):
-        _eq(g, w, f"{what} {name}")
+    assert ni.tolist() == want["n_items"], f"{what} n_items"
+    for b, k in enumerate(want["n_items"]):  # starts past n_items are filler
+        _eq(st[b, :k], want["starts"][b], f"{what} starts")
+    for name, g in zip(("pk1", "bestq2", "bestlen2"), rest):
+        _eq(g, want[name], f"{what} {name}")
 
 
 def _eq_mid2(got, want, what):
     items, *rest = got
     names = ob.Items._fields + ("ok", "r1", "rounds", "dem_a", "dem_b")
-    for name, g, w in zip(names, tuple(items) + tuple(rest), want):
+    for name, g, (w_name, w) in zip(names, tuple(items) + tuple(rest), want):
+        assert name == w_name, what
         _eq(g, w, f"{what} {name}")
 
 
@@ -149,19 +97,13 @@ def test_l2_chain_matches_jax(segs, schedule_env, jax_chain):
     st, ni, pk1 = stages["FRONT"][:3]
 
     plan, mask, ni_h = stages["QUALITY scan"]
-    j_plan = jax_chain["plan"]
     for name, got in zip(ob.MaskedPlan._fields, plan):
-        if name == "dw_s":
-            want = np.stack(j_plan[9], axis=1).view(np.int32)
-        else:
-            want = j_plan[("sp_h2", "sval_h2", "first_h2", None, "sp_ctx",
-                           "first_ctx", None, "msk", "msp").index(name)]
-        _eq(got, want, f"plan {name}")
-    for sp, dest in ((plan.sp_h2, j_plan[3]), (plan.sp_ctx, j_plan[6]),
-                     (plan.msp, j_plan[10])):  # JAX's inverse permutations
+        _eq(got, jax_chain["plan"][name], f"plan {name}")
+    for sp, dest in zip((plan.sp_h2, plan.sp_ctx, plan.msp),
+                        jax_chain["plan_dest"]):  # JAX's inverse permutations
         _eq(torch.argsort(sp, dim=1), dest, "plan dest")
-    _eq(mask, jax_chain["mask"][0], "scan mask")
-    _eq(ni_h, jax_chain["mask"][1], "scan n_items")
+    _eq(mask, jax_chain["mask"], "scan mask")
+    _eq(ni_h, jax_chain["n_items"], "scan n_items")
 
     it_a, it_b = stages["QUALITY tail"]
     _eq_iterate(it_a, jax_chain["it_a"], "iterate A")
@@ -178,13 +120,12 @@ def test_l2_chain_matches_jax(segs, schedule_env, jax_chain):
     assert not torch.equal(dem_a, dem_b)  # iterate A was emitted too
 
     metas, words = stages["BACK"]
-    j_meta, j_words = jax_chain["back"]
-    _eq(metas, j_meta, "back meta")
+    _eq(metas, jax_chain["back_meta"], "back meta")
     for b in range(len(segs)):
-        k = int(j_meta[b, 3])  # total_words
-        _eq(words[b, :k], j_words[b, :k], "back words")
+        k = int(metas[b, 3])  # total_words, JAX's: the metas are equal
+        _eq(words[b, :k], jax_chain["back_words"][b], "back words")
 
-    assert payloads == jax_chain["payloads"]
+    assert payload_digests(payloads) == jax_chain["payloads"]
     for seg, payload in zip(segs, payloads):
         assert decode_segment(payload) == seg
 

@@ -2,10 +2,9 @@
 per-segment container path, against the JAX package on the CPU.
 
 - ``mesh_encode_segments_staged`` over four CPU devices equals JAX's over
-  a 4-device mesh (``tests/conftest.py`` gives JAX 8 virtual CPU devices),
-  with ``_sr_caps_for`` set low in both packages (for the test only), so
-  that the text segments are flagged and re-encoded through the staged
-  encoder; ``mesh_encode_segments`` (OTZ1) equals JAX's.
+  a 4-device mesh, with ``_sr_caps_for`` set low in both packages (for the
+  test only), so that the text segments are flagged and re-encoded through
+  the staged encoder; ``mesh_encode_segments`` (OTZ1) equals JAX's.
 - A world-2 gloo run of ``distributed_encode_file`` in two subprocesses,
   in the style of ``tests/test_multiprocess.py``: every stripe of five
   16 KiB segments is short, so every payload is the staged encoder's, and
@@ -13,8 +12,10 @@ per-segment container path, against the JAX package on the CPU.
 - ``torch_encode`` under ``ORZ_PER_SEGMENT=1`` equals ``tpu_encode`` under
   the same variable.
 
-The JAX chains run at ``OTZ2_SCHEDULE=96x1,384x2`` on segments of at most
-4 KiB (one length bucket); the shard_map chain runs once.  All outputs are
+JAX's payloads are recorded (``tests/torch_jax_records.json``, records
+``mesh-staged``, ``mesh-otz1`` and ``per-segment-l1``, written by
+``tests/torch_parity_ref.py``): its chains ran at
+``OTZ2_SCHEDULE=96x1,384x2`` on segments of at most 4 KiB.  All outputs are
 bytes: tolerance 0.
 """
 
@@ -35,6 +36,7 @@ from orz_tpu_torch.device import pipeline as tp
 from orz_tpu_torch.parallel import distributed as td
 from orz_tpu_torch.parallel import mesh as tm
 from tests.conftest import make_binary_like, make_text_like
+from tests.torch_parity_ref import expect, payload_digests
 
 torch.set_num_threads(2)
 
@@ -60,17 +62,14 @@ def test_mesh_staged_matches_jax(segs, schedule, monkeypatch):
     C_MID contexts pass 64, so both packages flag them and re-encode them
     through the staged encoder; the binary ones keep the chain's payload,
     the batch's."""
-    from orz_tpu.parallel import blocks_mesh
-    from orz_tpu.parallel import mesh as jm
-
     def low(cap):
         return 1024, 64
 
-    monkeypatch.setattr(jm, "_sr_caps_for", low)
+    rec = expect("mesh-staged", segs, {"_sr_caps_for": list(low(0))})
     monkeypatch.setattr(tm, "_sr_caps_for", low)
     flagged = []
     got = tm.mesh_encode_segments_staged(segs, 2, mesh=CPU4, flagged=flagged)
-    assert got == jm.mesh_encode_segments_staged(segs, 2, mesh=blocks_mesh(4))
+    assert payload_digests(got) == rec["payloads"]
     assert [i for i, _ in flagged] == [0, 2]
     assert all(why.startswith("rounds - r1") for _, why in flagged)
     for i, (seg, payload) in enumerate(zip(segs, got)):
@@ -104,11 +103,10 @@ def test_mesh_staged_emits_again_at_cap(schedule, monkeypatch):
 
 
 def test_mesh_encode_segments_matches_jax(segs):
-    from orz_tpu.parallel import blocks_mesh, mesh_encode_segments
-
     batch = [segs[0], b"", segs[0][:17], segs[1]]
+    rec = expect("mesh-otz1", batch)
     got = tm.mesh_encode_segments(batch, 1, mesh=CPU4)
-    assert got == mesh_encode_segments(batch, 1, mesh=blocks_mesh(4))
+    assert payload_digests(got) == rec["payloads"]
     assert got == [tp.encode_segment_device(s, 1, device="cpu")
                    for s in batch]
 
@@ -216,14 +214,14 @@ def test_distributed_world1_stripes(tmp_path, schedule):
 def test_per_segment_env_matches_tpu_encode(monkeypatch):
     """ORZ_PER_SEGMENT=1: every segment through the staged encoder, two
     threads, in both packages (l1, 4 KiB segments)."""
-    from orz_tpu.device.container import tpu_encode_bytes
+    from orz_tpu_torch.tools.parity_data import stream_digests
 
     monkeypatch.setenv("ORZ_PER_SEGMENT", "1")
     data = make_text_like(np.random.default_rng(0x9E5), 3 * 4096 + 700)
+    rec = expect("per-segment-l1", data)
     got = tc.torch_encode_bytes(data, level=1, num_streams=2,
                                 segment_size=4096, device="cpu")
-    assert got == tpu_encode_bytes(data, level=1, num_streams=2,
-                                   segment_size=4096)
+    assert stream_digests(got) == rec["stream"]
     segments = [data[i:i + 4096] for i in range(0, len(data), 4096)]
     assert got == _container(
         segments, [tp.encode_segment_staged(s, 1, device="cpu")

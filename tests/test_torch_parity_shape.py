@@ -32,7 +32,6 @@ torch = pytest.importorskip("torch")
 
 from orz_tpu_torch.device import container as tc
 from orz_tpu_torch.tools import parity_data as pd
-from torch_jax_cache import shared
 
 torch.set_num_threads(2)
 
@@ -103,11 +102,10 @@ def jax_stream(data: bytes, level: int, kw: dict) -> bytes:
     return tpu_encode_bytes(data, level, **kw)
 
 
-def test_live_jax_matches_committed_digest(tmp_path_factory, no_knobs):
+def test_live_jax_matches_committed_digest(no_knobs):
     rec = CASES["S-l1"]
     data = case_data(rec)
-    stream = shared(tmp_path_factory, "parity_s_l1", jax_stream, data,
-                    rec["level"], encode_kw(rec))
+    stream = jax_stream(data, rec["level"], encode_kw(rec))
     assert pd.parity_faults(rec, "batched", data, stream) == []
 
 

@@ -1,12 +1,12 @@
 """The per-segment staged encoder (``orz_tpu_torch/device/pipeline.py``)
 and the batch's routing through it, against the JAX package on the CPU.
 
-The JAX functions run with ``OTZ2_SCHEDULE=96x1,384x2`` (every code path
+The JAX functions ran with ``OTZ2_SCHEDULE=96x1,384x2`` (every code path
 of the default schedule at a quarter of its steps), on segments of at most
-4 KiB: every segment is in the smallest length bucket (4096), so the JAX
-per-segment programs compile once per depth, and the cases that share
-programs share one test (under xdist each test may run in another
-process).  Each case holds the port's payload to JAX's:
+4 KiB; their payloads are recorded (``tests/torch_jax_records.json``,
+records ``staged-l2`` and ``staged-otz1``, written by
+``tests/torch_parity_ref.py``).  Each case holds the port's payload to
+JAX's:
 
 - ``encode_segment_staged`` at l2 (OTZ2), l1, l0 and l2 with ``OTZ2=0``,
   on text, on binary, on 17 bytes and on no bytes;
@@ -35,14 +35,15 @@ from orz_tpu_torch.device import pipeline as tp
 from orz_tpu_torch.device.container import decode_segment
 from orz_tpu_torch.spec import CHUNK_INPUT_DEFAULT
 from tests.conftest import make_binary_like, make_text_like
+from tests.torch_parity_ref import expect, payload_digests
 
 torch.set_num_threads(2)
 
 SCHEDULE = "96x1,384x2"
 SKEW_CAP = 64  # R_CAP_MAX for the skew cases: text is past it, binary not
 
-# name -> (segment, level, OTZ2 env value or None); the l2 cases share one
-# set of JAX programs, the OTZ1 cases another, and each set runs in one test
+# name -> (segment, level, OTZ2 env value or None); the l2 cases are one
+# record, the OTZ1 cases another, and each record is read by one test
 L2 = {"text": ("text", 2, None), "binary": ("binary", 2, None),
       "17 bytes": ("17", 2, None), "empty": ("empty", 2, None),
       "OTZ2=0 text": ("text", 2, "0")}
@@ -65,25 +66,22 @@ def schedule(monkeypatch):
     monkeypatch.setenv("OTZ2_SCHEDULE", SCHEDULE)
 
 
-def _skew_patch(mp):
-    """R_CAP_MAX = SKEW_CAP in the port's module and in both JAX modules
-    that read it."""
-    from orz_tpu.device import batch as jb
-    from orz_tpu.ops import symrank_pallas
-
-    mp.setattr(th, "R_CAP_MAX", SKEW_CAP)
-    mp.setattr(jb, "R_CAP_MAX", SKEW_CAP)
-    mp.setattr(symrank_pallas, "R_CAP_MAX", SKEW_CAP)
-
-
-def _staged_both(data, level, otz2, monkeypatch):
-    from orz_tpu.device import pipeline as jp
-
+def _staged(data, level, otz2, monkeypatch):
     with monkeypatch.context() as mp:
         if otz2 is not None:
             mp.setenv("OTZ2", otz2)
-        return (tp.encode_segment_staged(data, level, device="cpu"),
-                jp.encode_segment_staged(data, level))
+        return tp.encode_segment_staged(data, level, device="cpu")
+
+
+def _staged_matches(segs, cases, rec, monkeypatch):
+    """Each case's staged payload equals JAX's recorded one (at the
+    recorded level and OTZ2) and decodes."""
+    for name, (seg, level, otz2) in cases.items():
+        want = rec["staged"][name]
+        assert (want["level"], want["otz2"]) == (level, otz2), name
+        got = _staged(segs[seg], level, otz2, monkeypatch)
+        assert payload_digests([got]) == [want["payload"]], name
+        assert decode_segment(got) == segs[seg], name
 
 
 def test_staged_l2_matches_jax(segs, schedule, monkeypatch):
@@ -91,16 +89,12 @@ def test_staged_l2_matches_jax(segs, schedule, monkeypatch):
     with OTZ2=0; a batch that holds an empty segment (whole through the
     staged encoder); past R_CAP_MAX the staged encoder emits the text
     segment as OTZ1 through encode_segment_device (JAX's route for it is
-    held at l1, where its OTZ1 program is compiled already)."""
-    from orz_tpu.device.batch import encode_segments_batch
-
-    for name, (seg, level, otz2) in L2.items():
-        got, want = _staged_both(segs[seg], level, otz2, monkeypatch)
-        assert got == want, name
-        assert decode_segment(got) == segs[seg], name
+    held at l1)."""
+    rec = expect("staged-l2", [segs["text"], segs["binary"]])
+    _staged_matches(segs, L2, rec, monkeypatch)
     batch = [segs["text"], b"", segs["binary"]]
     got = tb.encode_segments_batch(batch, 2, device="cpu")
-    assert got == encode_segments_batch(batch, 2)
+    assert payload_digests(got) == rec["batch"]
     assert got == [tp.encode_segment_staged(s, 2, device="cpu")
                    for s in batch]
     normal = got[0]
@@ -118,25 +112,24 @@ def test_staged_otz1_and_device_match_jax(segs, schedule, monkeypatch):
     """encode_segment_staged at l1 and l0; encode_segment_device at l1 and
     l0; the skew check after the batch's MID (at l1), which sends the batch
     whole through the staged encoder, where the text segment, past
-    R_CAP_MAX, goes on to encode_segment_device."""
-    from orz_tpu.device import pipeline as jp
-    from orz_tpu.device.batch import encode_segments_batch
-
-    for name, (seg, level, otz2) in OTZ1.items():
-        got, want = _staged_both(segs[seg], level, otz2, monkeypatch)
-        assert got == want, name
-        assert decode_segment(got) == segs[seg], name
+    R_CAP_MAX, goes on to encode_segment_device (JAX's payloads: with
+    R_CAP_MAX = SKEW_CAP in both its modules that read it)."""
+    rec = expect("staged-otz1", [segs["text"], segs["binary"]])
+    _staged_matches(segs, OTZ1, rec, monkeypatch)
     for name, (seg, level) in DEVICE.items():
+        want = rec["device"][name]
+        assert want["level"] == level, name
         got = tp.encode_segment_device(segs[seg], level, device="cpu")
-        assert got == jp.encode_segment_device(segs[seg], level), name
+        assert payload_digests([got]) == [want["payload"]], name
         assert got == tp.encode_segment_staged(segs[seg], level,
                                                device="cpu"), name
     pair = [segs["text"], segs["binary"]]
     normal = tb.encode_segments_batch(pair, 1, device="cpu")
+    assert rec["skew"]["R_CAP_MAX"] == SKEW_CAP
     with monkeypatch.context() as mp:
-        _skew_patch(mp)
+        mp.setattr(th, "R_CAP_MAX", SKEW_CAP)
         got = tb.encode_segments_batch(pair, 1, device="cpu")
-        assert got == encode_segments_batch(pair, 1)
+        assert payload_digests(got) == rec["skew"]["payloads"]
     assert got == normal  # at l1 staged and batched payloads agree
 
 

@@ -13,11 +13,11 @@ exception class each decoder raises on corrupted payloads.  The decode
 route: without g++ (``OSError``) ``torch_decode`` falls back to
 ``decode_segment_ref`` where ``tpu_decode`` does, and counts it; a failed
 compile raises in both.  Every output is an integer or bytes: tolerance
-0.  The JAX l1 and l2 payloads are computed once per run
-(``torch_jax_cache.shared``) and serve both the encode and the corruption
-cases.
+0.  The JAX l1 and l2 payloads are computed once per process and serve
+both the encode and the corruption cases.
 """
 
+import functools
 import io
 import os
 import subprocess
@@ -38,7 +38,6 @@ from orz_tpu_torch.device import container as tc
 from orz_tpu_torch.device import pm_huffman as tpm
 from orz_tpu_torch.device import refcodec as tr
 from tests.conftest import make_binary_like, make_text_like
-from torch_jax_cache import shared
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -70,10 +69,10 @@ CASES = {
 }
 
 
-def _jax_payload(tmp_path_factory, case):
+@functools.cache
+def _jax_payload(case):
     seg, level, chunk, rings = CASES[case]
-    return shared(tmp_path_factory, "refcodec_payload",
-                  jr.encode_segment_ref, INPUTS[seg], level, chunk, rings)
+    return jr.encode_segment_ref(INPUTS[seg], level, chunk, rings)
 
 
 def _buf(seed, n):
@@ -195,10 +194,10 @@ def test_analyze_parse_symrank_match_jax(rings_mode):
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_encode_decode_match_jax(case, tmp_path_factory):
+def test_encode_decode_match_jax(case):
     seg, level, chunk, rings = CASES[case]
     data = INPUTS[seg]
-    want = _jax_payload(tmp_path_factory, case)
+    want = _jax_payload(case)
     got = tr.encode_segment_ref(data, level, chunk, rings)
     assert got == want
     back = tr.decode_segment_ref(got)
@@ -241,10 +240,10 @@ def _outcome(decode, payload):
 
 
 @pytest.mark.parametrize("case", ["text l1", "binary 4k l2"])
-def test_corrupt_payloads_raise_alike(case, tmp_path_factory):
+def test_corrupt_payloads_raise_alike(case):
     """The same exception class (by name: OTZFormatError is each package's
     own) or the same bytes from both decoders, on 30 mutants."""
-    payload = _jax_payload(tmp_path_factory, case)
+    payload = _jax_payload(case)
     rng = np.random.default_rng(0xF022)
     seen = set()
     for mutant in _mutations(rng, payload, 30):

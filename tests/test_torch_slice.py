@@ -6,8 +6,10 @@ Stage parity: FRONT, MID and BACK outputs equal the JAX programs'
 padded (B=2, cap=1<<15) buffers.  Stream parity: payloads are
 byte-identical to ``encode_segments_batch(..., rings_mode=0)`` at l0, l1
 and l2 and to the sequential oracle ``refcodec.encode_segment_ref`` at l1
-and l2, and decode through the native decoder.  All outputs are integers:
-tolerance 0.  The port's sources import nothing of ``orz_tpu``, and an
+and l2, and decode through the native decoder.  JAX's outputs are recorded
+(``tests/torch_jax_records.json``, records ``slice-chain`` and
+``slice-payloads``, written by ``tests/torch_parity_ref.py``): each array
+as the SHA-256 of its values.  All outputs are integers: tolerance 0.  The port's sources import nothing of ``orz_tpu``, and an
 encode and decode through the port load no module of it.
 """
 
@@ -26,7 +28,7 @@ from orz_tpu_torch.device.host import _bucket, pad_batch
 from orz_tpu_torch.ops import batched as ob
 from orz_tpu_torch.spec import CHUNK_INPUT_DEFAULT, n_chunks_for
 from tests.conftest import make_binary_like, make_text_like
-from torch_jax_cache import jax_front, shared
+from tests.torch_parity_ref import digest, expect, payload_digests
 
 torch.set_num_threads(2)
 
@@ -53,81 +55,56 @@ def torch_chain(segs):
     return front, (items, r1, rounds), out
 
 
-def _jax_mid_back(segs, front):
-    """b_mid_jit and b_back_jit on the JAX FRONT's outputs, as host
-    arrays."""
-    import jax.numpy as jnp
-
-    from orz_tpu.device.batch import b_back_jit, b_mid_jit
-    from orz_tpu.ops.symrank_pallas import RB_BLK
-
-    lens = jnp.asarray(pad_batch(segs, CAP)[1])
-    st, ni, pk1, bq, bro, bufs_d, _ = (jnp.asarray(a) for a in front)
-    m_cap = _bucket(int(np.asarray(ni).max()), 1 << 14, 2)
-    items, r1, rounds = b_mid_jit(st, ni, pk1, bq, bro, bufs_d, lens, m_cap)
-    mid = (tuple(np.asarray(a) for a in items), np.asarray(r1),
-           np.asarray(rounds))
-    r1_h, r_h = mid[1], mid[2]
-    out = b_back_jit(items, CHUNK_INPUT_DEFAULT, C_MAX,
-                     _bucket(max(int(r1_h.max()), 1), RB_BLK),
-                     _bucket(max(int((r_h - r1_h).max()), 1), 4 * RB_BLK))
-    return mid, (np.asarray(out.meta), np.asarray(out.words))
-
-
 @pytest.fixture(scope="module")
-def jax_chain(segs, tmp_path_factory):
-    """The JAX chain, once per run (its FRONT is tests/test_torch_l2.py's
-    too)."""
-    front = shared(tmp_path_factory, "front", jax_front, segs, CAP, DEPTH)
-    return (front, *shared(tmp_path_factory, "slice_mid_back", _jax_mid_back,
-                           segs, front))
+def jax_chain(segs):
+    """JAX's FRONT, MID and BACK outputs, recorded
+    (``tests/torch_jax_records.json``, ``slice-chain``)."""
+    return expect("slice-chain", segs)
 
 
 def test_front_body_matches_jax(torch_chain, jax_chain):
     starts, ni, pk1, bq, bro, _, mask = torch_chain[0]
-    j_starts, j_ni, j_pk1, j_bq, j_bro, _, j_mask = jax_chain[0]
-    np.testing.assert_array_equal(ni.numpy(), j_ni)
-    for b in range(len(j_ni)):
-        np.testing.assert_array_equal(starts[b, :j_ni[b]].numpy(),
-                                      j_starts[b, :j_ni[b]])
-    for got, want in ((pk1, j_pk1), (bq, j_bq), (bro, j_bro),
-                      (mask, j_mask)):
-        np.testing.assert_array_equal(got.numpy(), want)
+    want = jax_chain["front"]
+    assert ni.tolist() == want["n_items"]
+    for b, k in enumerate(want["n_items"]):
+        assert digest(starts[b, :k]) == want["starts"][b]
+    for name, got in (("pk1", pk1), ("bestq", bq), ("bestro", bro),
+                      ("mask", mask)):
+        assert digest(got) == want[name], name
 
 
 def test_mid_body_matches_jax(torch_chain, jax_chain):
     items, r1, rounds = torch_chain[1]
-    j_items, j_r1, j_rounds = jax_chain[1]
-    assert len(items) == len(j_items)
-    for name, got, want in zip(ob.Items._fields, items, j_items):
-        assert got.shape == want.shape, name
-        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
-    np.testing.assert_array_equal(r1.numpy(), j_r1)
-    np.testing.assert_array_equal(rounds.numpy(), j_rounds)
+    want = jax_chain["mid"]
+    assert len(items) == len(want["items"])
+    for name, got, w in zip(ob.Items._fields, items, want["items"]):
+        assert digest(got) == w, name
+    assert digest(r1) == want["r1"]
+    assert digest(rounds) == want["rounds"]
 
 
 def test_back_body_matches_jax(torch_chain, jax_chain):
     out = torch_chain[2]
-    j_meta, j_words = jax_chain[2]
+    want = jax_chain["back"]
     meta = out.meta.numpy()
-    np.testing.assert_array_equal(meta, j_meta)
-    assert out.words.shape == j_words.shape
+    assert digest(meta) == want["meta"]
+    assert list(out.words.shape) == want["words_shape"]
     for b in range(meta.shape[0]):
         k = int(meta[b, 3])  # total_words
-        np.testing.assert_array_equal(
-            out.words[b, :k].numpy().astype(np.uint32), j_words[b, :k])
+        assert digest(out.words[b, :k].numpy().astype(np.uint32),
+                      "uint32") == want["words"][b]
 
 
 @pytest.mark.parametrize("level", [0, 1, 2])
 def test_payloads_match_jax(segs, level):
-    from orz_tpu.device.batch import encode_segments_batch as jax_encode
     from orz_tpu.native.otz import decode_segment_native
     from orz_tpu_torch.device.batch import encode_segments_batch
 
+    want = expect("slice-payloads", segs)["levels"][str(level)]
     got = encode_segments_batch(segs, level, rings_mode=0, device="cpu")
-    want = jax_encode(segs, level, rings_mode=0)
+    assert len(got) == len(want)
     for seg, payload, ref in zip(segs, got, want):
-        assert payload == ref
+        assert payload_digests([payload]) == [ref]
         assert decode_segment_native(payload) == seg
 
 
