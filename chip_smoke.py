@@ -33,7 +33,13 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    updates (last_marked) and item starts (exclusive_count); exact
    equality with the plain versions; CUDA-event times of kernel and
    plain, the byte bound, and one int64 torch.cummax over the same slots
-   (what each of the plain versions' scans costs) as a yardstick.
+   (what each of the plain versions' scans costs) as a yardstick.  Then
+   the running max and the exclusive sum on MID2's own inputs, caught
+   from one l2 encode of the 4 x 8 MiB batch: the item merge's
+   _seg_cummax (grouped) and cand_of_queries (one group a row) over
+   2 * mc slots, _expand_b's offsets over mc; equality, kernel and plain
+   times and the byte bound (9 bytes a slot with the group flags, 8
+   without).
 4. gather: P1 (the windowed gather) at the probe's default size, m = 2^21
    outputs from n = 2^23 words, on the probe's ascending indices and on
    the four edge cases (in window, fill, wrap, clamp): exact equality
@@ -537,6 +543,7 @@ def phase_kernels(data: bytes) -> dict:
             rec["seg_scan"].update(count_ms=ms, count_plain_ms=plain_ms)
     del scans, first, marked
     del plan, order, rank_s, mask_s, mask
+    rec["seg_scan"].update(scan_values(data))
 
     an = ob.analyze_b(bufs, lens, 32)
     nxt = ob.decisions_b(an, lens, n).nxt
@@ -627,6 +634,63 @@ def phase_kernels(data: bytes) -> dict:
     rec["symrank"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           device_ms=dev_ms, max_chain=max_chain,
                           chain_ms=chain_ms, **bd)
+    return rec
+
+
+def scan_values(data: bytes) -> dict:
+    """The running max and the exclusive sum (csrc/seg_scan.cu ops 2 and 3)
+    on the inputs MID2 gives them in one l2 encode of the first 4 x 8 MiB
+    of ``data``: the first call of each (operator, grouped), caught on
+    their way into the kernel, then held to the plain versions and timed.
+    """
+    import torch
+
+    from orz_tpu_torch.device.batch import encode_segments_batch
+    from orz_tpu_torch.kernels import seg_scan
+    from orz_tpu_torch.ops import batched as ob
+    from orz_tpu_torch.ops import otz2
+
+    caught = {}
+
+    def catch(name, fn):
+        def wrapped(first, values):
+            caught.setdefault((name, first is not None), (first, values))
+            return fn(first, values)
+        return wrapped
+
+    saved = ob.running_max, otz2.exclusive_sum
+    ob.running_max = catch("running_max", seg_scan.running_max)
+    otz2.exclusive_sum = catch("exclusive_sum", seg_scan.exclusive_sum)
+    try:
+        encode_segments_batch([data[i * 8 * MIB:(i + 1) * 8 * MIB]
+                               for i in range(4)], 2, device="cuda")
+    finally:
+        ob.running_max, otz2.exclusive_sum = saved
+    sites = (("running_max", True, "_seg_cummax", seg_scan.running_max,
+              seg_scan.running_max_plain),
+             ("running_max", False, "cand_of_queries", seg_scan.running_max,
+              seg_scan.running_max_plain),
+             ("exclusive_sum", False, "_expand_b", seg_scan.exclusive_sum,
+              seg_scan.exclusive_sum_plain))
+    rec = {}
+    for name, grouped, site, fn, plain in sites:
+        first, values = caught[(name, grouped)]
+        require_equal(f"seg_scan {name} ({site})", fn(first, values),
+                      plain(first, values))
+        ms = cuda_ms(lambda: fn(first, values), 20)
+        plain_ms = cuda_ms(lambda: plain(first, values), 3)
+        bsz, n = values.shape
+        per_slot = 9 if grouped else 8  # flag, value read; int32 written
+        bd = bound(per_slot * bsz * n, 0)
+        log(f"seg_scan {name} ({site}) B={bsz} n={n}: equal, kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}, {per_slot} B a "
+            f"slot, {ms / bd['bound_ms']:.2f}x)"
+            + (f"; group starts {float(first.float().mean()):.2e} of the "
+               f"slots" if grouped else ""))
+        rec[f"{site}_ms"] = ms
+        rec[f"{site}_plain_ms"] = plain_ms
+        rec[f"{site}_bound_ms"] = bd["bound_ms"]
     return rec
 
 
@@ -1427,7 +1491,7 @@ KERNEL_INFO = {
 }
 ENCODER_KERNELS = ["match_depth", "match_depth_masked", "fence_walk",
                    "walk_mask", "symrank", "seg_scan"]  # the l2 main path's
-L1_KERNELS = ["match_depth", "fence_walk", "symrank"]
+L1_KERNELS = ["match_depth", "fence_walk", "symrank", "seg_scan"]
 
 
 def main() -> int:

@@ -1,22 +1,34 @@
-// The segmented scans over sorted slots of QUALITY and MID2's repair loop.
+// The segmented scans over sorted slots of QUALITY, MID2's repair loop, the
+// item merges and FRONT's context ranks.
 //
 // Replaces no TPU kernel.  The JAX package runs these scans as
-// lax.associative_scan (orz_tpu/ops/batched.py _words1_scan_b and
-// masked_context_counts_planned_b, orz_tpu/ops/otz2.py _pred_at_items_b),
-// which XLA lowers itself.  The port first rebuilt them from ATen's int64
-// torch.cummax and torch.cumsum, which give each row of a (B, n) scan one
-// 512-thread CTA: 4 of the 132 SMs at B = 4, about 25 ms a cummax at
+// lax.associative_scan or lax.cummax (orz_tpu/ops/batched.py
+// _words1_scan_b, masked_context_counts_planned_b, context_ranks_b,
+// cand_of_queries, _rep0_b, lengths_and_symbols; orz_tpu/ops/otz2.py
+// _pred_at_items_b, _ranks_and_membership_b, _expand_b), which XLA lowers
+// itself.  The port first rebuilt them from ATen's torch.cummax and
+// torch.cumsum, which give each row of a (B, n) scan one 512-thread CTA:
+// 4 of the 132 SMs at B = 4, one at B = 1, about 25 ms an int64 cummax at
 // n = 8 MiB + 16.
 //
-// Two operators over (B, n) rows of bool `first` (a group starts at the
-// slot; a row's first slot starts one whatever its flag) and bool `marked`,
-// into int32 `out`:
-//   op 0, last-marked: the index of the newest marked slot at or before the
-//     slot within its group, -1 where there is none;
-//   op 1, exclusive count: the count of marked slots before the slot within
-//     its group.
-// Bound on the H100: bytes, 2 read and 4 written a slot (200 MB, 0.06 ms at
-// 3.35 TB/s, at 4 x (8 MiB + 16) slots).
+// Four operators over (B, n) rows, into int32 `out`.  `first` (bool: a
+// group starts at the slot; a row's first slot starts one whatever its
+// flag) may be null: then a row is one group.
+//   op 0, last-marked (bool `marked`): the index of the newest marked slot
+//     at or before the slot within its group, -1 where there is none
+//     (QUALITY's word updates, MID2's word predictions, rep0_b's newest
+//     match, the group starts of context_ranks_b and
+//     _ranks_and_membership_b);
+//   op 1, exclusive count (bool `marked`): the count of marked slots
+//     before the slot within its group (QUALITY's context counts);
+//   op 2, running max (int32 `values`): the max of the values from the
+//     group's start through the slot (the item merges' _seg_cummax and
+//     cand_of_queries);
+//   op 3, exclusive sum (int32 `values`): the sum of the values before the
+//     slot within its group, modulo 2^32 (_expand_b's offsets).
+// Bound on the H100: bytes.  Ops 0 and 1 read 2 and write 4 bytes a slot
+// (200 MB, 0.06 ms at 3.35 TB/s, at 4 x (8 MiB + 16) slots); ops 2 and 3
+// read 1 (with `first`) and 4 and write 4.
 //
 // Design: one CTA per 4096-slot tile of a row (256 threads x 16 slots, each
 // flag row read with one 16-byte load a thread), 8192 tiles at B = 4.  A
@@ -24,10 +36,10 @@
 // states with warp shuffles and one shared-memory pass.  A state (v, r) is
 // the operator's value since a run's last group start and whether a group
 // starts in the run; a run L followed by a run R combine to
-// (R.r ? R.v : op(L.v, R.v), L.r | R.r), op max (0) or + (1).  The carry
-// across tiles is a single-pass decoupled look-back: each tile publishes
-// its state in one 64-bit descriptor (status, r, v), first as its
-// aggregate, then as its inclusive prefix, and warp 0 reads the 32
+// (R.r ? R.v : op(L.v, R.v), L.r | R.r), op max (0, 2) or + (1, 3).  The
+// carry across tiles is a single-pass decoupled look-back: each tile
+// publishes its state in one 64-bit descriptor (status, r, v), first as
+// its aggregate, then as its inclusive prefix, and warp 0 reads the 32
 // descriptors before its tile at a time, stopping at the first that is a
 // prefix or holds a group start.  Tiles take their ids from an atomic
 // counter in the order their CTAs start, so every tile a look-back waits on
@@ -39,7 +51,10 @@
 // flags across the look-back and computes its outputs again afterwards
 // (at most 40 registers: 6 CTAs an SM), and a whole tile's outputs go out
 // through shared memory, so that a warp store writes 512 contiguous bytes
-// and not a 16-byte piece of each of 16 lines.
+// and not a 16-byte piece of each of 16 lines.  Ops 2 and 3 bring the
+// tile's values into that same shared buffer first, with coalesced loads,
+// and keep them there across the look-back: a thread reads its own 16
+// values from it twice and overwrites them with its outputs.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -62,7 +77,11 @@ constexpr uint64_t kAggregate = 1ull << 33;
 constexpr uint64_t kPrefix = 2ull << 33;
 constexpr uint64_t kStatus = 3ull << 33;
 
+// An operator: its identity, its combine op, and step, the output at one
+// slot, which updates the running value v.  Ops 0 and 1 step on a slot's
+// mark and index, ops 2 and 3 on its value.
 struct LastMarked {
+  static constexpr bool kValued = false;
   static constexpr int kIdentity = -1;
   static __device__ __forceinline__ int op(int a, int b) { return max(a, b); }
   // one slot: the output at `slot`, updating the running value
@@ -73,11 +92,36 @@ struct LastMarked {
 };
 
 struct ExclCount {
+  static constexpr bool kValued = false;
   static constexpr int kIdentity = 0;
   static __device__ __forceinline__ int op(int a, int b) { return a + b; }
   static __device__ __forceinline__ int step(int& v, bool mk, int) {
     const int o = v;
     v += mk;
+    return o;
+  }
+};
+
+struct RunningMax {
+  static constexpr bool kValued = true;
+  static constexpr int kIdentity = INT_MIN;
+  static __device__ __forceinline__ int op(int a, int b) { return max(a, b); }
+  static __device__ __forceinline__ int step(int& v, int x) {
+    v = max(v, x);
+    return v;
+  }
+};
+
+struct ExclSum {  // modulo 2^32: unsigned adds, which may wrap
+  static constexpr bool kValued = true;
+  static constexpr int kIdentity = 0;
+  static __device__ __forceinline__ int op(int a, int b) {
+    return static_cast<int>(static_cast<unsigned>(a) +
+                            static_cast<unsigned>(b));
+  }
+  static __device__ __forceinline__ int step(int& v, int x) {
+    const int o = v;
+    v = op(v, x);
     return o;
   }
 };
@@ -123,12 +167,57 @@ __device__ __forceinline__ bool byte_at(const uint32_t (&w)[kWords], int i) {
   return (w[i >> 2] >> (8 * (i & 3))) & 0xffu;
 }
 
+// slot i of a thread's run, whose first slot is t0; x is the slot's value
+// (ops 2 and 3), unused by ops 0 and 1
+template <class Op>
+__device__ __forceinline__ int step_at(int& v, const uint32_t (&mw)[kWords],
+                                       int i, int t0, int x) {
+  if constexpr (Op::kValued)
+    return Op::step(v, x);
+  else
+    return Op::step(v, byte_at(mw, i), t0 + i);
+}
+
+// a thread's kItems flags from p + off as bytes of 0 or 1, 0 past the
+// row's end (slot t0 + i < n) and everywhere when p is null
+__device__ __forceinline__ void load_flags(const unsigned char* p,
+                                           size_t off, int t0, int n,
+                                           uint32_t (&w)[kWords]) {
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) w[j] = 0u;
+  if (p == nullptr) return;
+  if (t0 + kItems <= n &&
+      (reinterpret_cast<uintptr_t>(p + off) & 15u) == 0u) {
+#pragma unroll
+    for (int q = 0; q < kVecs; ++q) {
+      const uint4 f = __ldcs(reinterpret_cast<const uint4*>(p + off) + q);
+      w[4 * q] = f.x; w[4 * q + 1] = f.y; w[4 * q + 2] = f.z;
+      w[4 * q + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kItems; ++i)
+      if (t0 + i < n)
+        w[i >> 2] |= static_cast<uint32_t>(p[off + i] != 0) << (8 * (i & 3));
+  }
+}
+
+// the values of slots s to s + 3 of the staged tile (ops 2 and 3); zeros
+// for ops 0 and 1, which stage no values
+template <class Op>
+__device__ __forceinline__ int4 values_at(const int* staged, int s) {
+  if constexpr (Op::kValued)
+    return *reinterpret_cast<const int4*>(staged + padded(s));
+  else
+    return make_int4(0, 0, 0, 0);
+}
+
 template <class Op>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 seg_scan_kernel(const unsigned char* __restrict__ first,
                 const unsigned char* __restrict__ marked,
-                int* __restrict__ out, unsigned* counter, uint64_t* desc,
-                int n, int tiles_per_row) {
+                const int* __restrict__ values, int* __restrict__ out,
+                unsigned* counter, uint64_t* desc, int n, int tiles_per_row) {
   __shared__ int warp_v[kWarps];
   __shared__ bool warp_r[kWarps];
   __shared__ int s_tile, s_prefix;
@@ -143,40 +232,47 @@ seg_scan_kernel(const unsigned char* __restrict__ first,
   const int t0 = k * kTile + tid * kItems;  // the thread's first slot
   const size_t off = static_cast<size_t>(row) * n + t0;
 
-  // the flags as bytes of 0 or 1, 0 past the row's end
   uint32_t fw[kWords], mw[kWords];
-  if (t0 + kItems <= n && ((reinterpret_cast<uintptr_t>(first + off) |
-                            reinterpret_cast<uintptr_t>(marked + off)) &
-                           15u) == 0u) {
+  load_flags(first, off, t0, n, fw);
+  if constexpr (Op::kValued) {
+    // the tile's values into shared memory, the identity past the row's
+    // end; a warp load reads 512 contiguous bytes
+    const int* src = values + (off - tid * kItems);
+    if (k * kTile + kTile <= n &&
+        (reinterpret_cast<uintptr_t>(src) & 15u) == 0u) {
 #pragma unroll
-    for (int q = 0; q < kVecs; ++q) {
-      const uint4 f = __ldcs(reinterpret_cast<const uint4*>(first + off) + q);
-      const uint4 m = __ldcs(reinterpret_cast<const uint4*>(marked + off) + q);
-      fw[4 * q] = f.x; fw[4 * q + 1] = f.y; fw[4 * q + 2] = f.z;
-      fw[4 * q + 3] = f.w;
-      mw[4 * q] = m.x; mw[4 * q + 1] = m.y; mw[4 * q + 2] = m.z;
-      mw[4 * q + 3] = m.w;
-    }
-  } else {
+      for (int q = 0; q < kItems / 4; ++q) {
+        const int s = 4 * (q * kThreads + tid);
+        *reinterpret_cast<int4*>(staged + padded(s)) =
+            __ldcs(reinterpret_cast<const int4*>(src + s));
+      }
+    } else {
 #pragma unroll
-    for (int w = 0; w < kWords; ++w) fw[w] = mw[w] = 0u;
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      if (t0 + i < n) {
-        const int sh = 8 * (i & 3);
-        fw[i >> 2] |= static_cast<uint32_t>(first[off + i] != 0) << sh;
-        mw[i >> 2] |= static_cast<uint32_t>(marked[off + i] != 0) << sh;
+      for (int i = 0; i < kItems; ++i) {
+        const int s = i * kThreads + tid;
+        staged[padded(s)] = k * kTile + s < n ? src[s] : Op::kIdentity;
       }
     }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) mw[j] = 0u;  // unread
+  } else {
+    load_flags(marked, off, t0, n, mw);
   }
 
   // the thread's run, from its own start; its outputs are computed again
   // once the carry is known, so that only the flags stay in registers
   State mine = {Op::kIdentity, false};
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    if (byte_at(fw, i)) mine = {Op::kIdentity, true};
-    Op::step(mine.v, byte_at(mw, i), t0 + i);
+  for (int q = 0; q < kItems / 4; ++q) {
+    const int4 x4 = values_at<Op>(staged, tid * kItems + 4 * q);
+    const int x[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = 4 * q + j;
+      if (byte_at(fw, i)) mine = {Op::kIdentity, true};
+      step_at<Op>(mine.v, mw, i, t0, x[j]);
+    }
   }
 
   // the warp: inclusive, then the state before each lane
@@ -239,21 +335,23 @@ seg_scan_kernel(const unsigned char* __restrict__ first,
 
   // the thread's slots again, from the carry into its first slot; a whole
   // tile goes out through shared memory, so that each warp writes 512
-  // contiguous bytes a store
+  // contiguous bytes a store (ops 2 and 3 overwrite their own values)
   int v = cat<Op>(State{s_prefix, false}, before).v;
   int* tile_out = out + (off - tid * kItems);
   if (k * kTile + kTile <= n &&
       (reinterpret_cast<uintptr_t>(tile_out) & 15u) == 0u) {
 #pragma unroll
     for (int q = 0; q < kItems / 4; ++q) {
+      const int s = tid * kItems + 4 * q;
+      const int4 x4 = values_at<Op>(staged, s);
+      const int x[4] = {x4.x, x4.y, x4.z, x4.w};
       int o[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int i = 4 * q + j;
         if (byte_at(fw, i)) v = Op::kIdentity;
-        o[j] = Op::step(v, byte_at(mw, i), t0 + i);
+        o[j] = step_at<Op>(v, mw, i, t0, x[j]);
       }
-      const int s = tid * kItems + 4 * q;
       *reinterpret_cast<int4*>(staged + padded(s)) =
           make_int4(o[0], o[1], o[2], o[3]);
     }
@@ -269,22 +367,18 @@ seg_scan_kernel(const unsigned char* __restrict__ first,
 #pragma unroll
     for (int i = 0; i < kItems; ++i) {
       if (byte_at(fw, i)) v = Op::kIdentity;
-      const int o = Op::step(v, byte_at(mw, i), t0 + i);
+      const int x = Op::kValued ? staged[padded(tid * kItems + i)] : 0;
+      const int o = step_at<Op>(v, mw, i, t0, x);
       if (t0 + i < n) dst[i] = o;
     }
   }
 }
 
-}  // namespace
-
-// op 0: last-marked, op 1: exclusive count.  scratch: 1 + B * ceil(n /
-// 4096) 64-bit words of the caller's (the tile counter, then one
-// descriptor a tile), cleared here on the stream.
-extern "C" int otz_seg_scan(const unsigned char* first,
-                            const unsigned char* marked, int* out,
-                            void* scratch, int B, int n, int op,
-                            void* stream) {
-  if (B < 1 || n < 1 || n > INT_MAX - kTile || (op != 0 && op != 1))
+template <class Op>
+int launch(const unsigned char* first, const unsigned char* marked,
+           const int* values, int* out, void* scratch, int B, int n,
+           void* stream) {
+  if (B < 1 || n < 1 || n > INT_MAX - kTile)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles_per_row = (n + kTile - 1) / kTile;
   const long long tiles = static_cast<long long>(B) * tiles_per_row;
@@ -293,13 +387,42 @@ extern "C" int otz_seg_scan(const unsigned char* first,
   const cudaError_t err = cudaMemsetAsync(
       scratch, 0, static_cast<size_t>(tiles + 1) * sizeof(uint64_t), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  unsigned* counter = static_cast<unsigned*>(scratch);
-  uint64_t* desc = static_cast<uint64_t*>(scratch) + 1;
-  if (op == 0)
-    seg_scan_kernel<LastMarked><<<static_cast<int>(tiles), kThreads, 0, s>>>(
-        first, marked, out, counter, desc, n, tiles_per_row);
-  else
-    seg_scan_kernel<ExclCount><<<static_cast<int>(tiles), kThreads, 0, s>>>(
-        first, marked, out, counter, desc, n, tiles_per_row);
+  seg_scan_kernel<Op><<<static_cast<int>(tiles), kThreads, 0, s>>>(
+      first, marked, values, out, static_cast<unsigned*>(scratch),
+      static_cast<uint64_t*>(scratch) + 1, n, tiles_per_row);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// scratch, for both entry points: 1 + B * ceil(n / 4096) 64-bit words of
+// the caller's (the tile counter, then one descriptor a tile), cleared
+// here on the stream.  first may be null (each row one group).
+
+// op 0: last-marked, op 1: exclusive count, over bool `marked`.
+extern "C" int otz_seg_scan(const unsigned char* first,
+                            const unsigned char* marked, int* out,
+                            void* scratch, int B, int n, int op,
+                            void* stream) {
+  if (op == 0)
+    return launch<LastMarked>(first, marked, nullptr, out, scratch, B, n,
+                              stream);
+  if (op == 1)
+    return launch<ExclCount>(first, marked, nullptr, out, scratch, B, n,
+                             stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// op 2: running max, op 3: exclusive sum, over int32 `values`.
+extern "C" int otz_seg_scan_values(const unsigned char* first,
+                                   const int* values, int* out,
+                                   void* scratch, int B, int n, int op,
+                                   void* stream) {
+  if (op == 2)
+    return launch<RunningMax>(first, nullptr, values, out, scratch, B, n,
+                              stream);
+  if (op == 3)
+    return launch<ExclSum>(first, nullptr, values, out, scratch, B, n,
+                           stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -37,6 +37,7 @@ _SIGNATURES = {
     "otz_symrank": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "otz_windowed_gather": [_P, _P, _P, _P, _I, _I, _P],
     "otz_seg_scan": [_P] * 4 + [_I] * 3 + [_P],
+    "otz_seg_scan_values": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 _lib = None

@@ -22,11 +22,11 @@ Conventions that keep the results equal to the JAX ones:
   extra column that is dropped afterwards.  Where the scattered rows are a
   permutation (the match queries of an item merge), each row is written
   once and the rest go to distinct dump columns: no atomics.
-- ``lax.associative_scan`` has no torch counterpart.  QUALITY's segmented
-  scans over sorted slots (the newest marked slot of a group, a group's
-  exclusive count) are one CUDA kernel, ``kernels/seg_scan.py``; the
-  other scans are a ``cummax`` of slot indices clipped at the group
-  start, or a ``cumsum`` minus its value at the group start.
+- ``lax.associative_scan`` has no torch counterpart.  The row scans over
+  sorted slots and items (the newest marked slot of a group, a group's
+  start, a group's exclusive count, a running max of values, an
+  exclusive sum) are one CUDA kernel, ``kernels/seg_scan.py``, whose
+  plain versions are ``cummax`` and ``cumsum`` arithmetic.
 """
 
 from __future__ import annotations
@@ -54,7 +54,11 @@ from orz_tpu_torch.kernels.match_depth import (
     shift_dn,
 )
 from orz_tpu_torch.kernels.match_depth_masked import match_depth_masked
-from orz_tpu_torch.kernels.seg_scan import exclusive_count, last_marked
+from orz_tpu_torch.kernels.seg_scan import (
+    exclusive_count,
+    last_marked,
+    running_max,
+)
 from orz_tpu_torch.kernels.symrank import symrank
 from orz_tpu_torch.ops.huffman import canonical_codes_b, pm_code_lens_b
 from orz_tpu_torch.spec import (
@@ -332,7 +336,7 @@ def context_ranks_b(ba: ByteArrays, valid: torch.Tensor) -> torch.Tensor:
     x = _positions(bsz, n, valid.device)
     sk, order = torch.sort(torch.where(valid, ba.cctx, INT_MAX), dim=1,
                            stable=True)
-    gstart = torch.cummax(torch.where(_first_marks(sk), x, 0), dim=1).values
+    gstart = last_marked(None, _first_marks(sk))  # slot 0 is marked
     (rank,) = _sort_back_b(order, (x - gstart,))
     return torch.where(valid, rank, 0)
 
@@ -525,10 +529,9 @@ def front_body_b(bufs: torch.Tensor, seg_lens: torch.Tensor, depth: int):
 
 
 def _seg_cummax(first: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Inclusive running max of v (0 <= v < 256) restarting at each `first`
-    mark: a cummax over (segment id, v) packed into one int64 key."""
-    seg = torch.cumsum(first.long(), dim=1)
-    return torch.cummax(seg * 256 + v.long(), dim=1).values - seg * 256
+    """Inclusive running max of int32 v restarting at each `first` mark
+    (int64)."""
+    return running_max(first, v.int()).long()
 
 
 def scatter_queries(is_q: torch.Tensor, slot: torch.Tensor,
@@ -561,8 +564,8 @@ def merge_by_target(item_key, q_key):
 def cand_of_queries(o_role, o_pay, mc: int) -> torch.Tensor:
     """Per item, the newest item at or before its query's target in the
     merge (0 when none)."""
-    last_item = torch.cummax(torch.where(o_role == 0, o_pay, -1), dim=1).values
-    return scatter_queries(o_role == 1, o_pay, last_item, mc)
+    last_item = running_max(None, torch.where(o_role == 0, o_pay, -1).int())
+    return scatter_queries(o_role == 1, o_pay, last_item, mc).long()
 
 
 def rep0_b(start, kind, q, n_items):
@@ -571,7 +574,7 @@ def rep0_b(start, kind, q, n_items):
     idx = _positions(bsz, mc, start.device)
     is_m = (kind == 2) & (idx < n_items.view(-1, 1))
     dist = torch.where(is_m, start - q, 0)
-    last_match = torch.cummax(torch.where(is_m, idx, -1), dim=1).values
+    last_match = last_marked(None, is_m)
     prev_match = torch.cat(
         [torch.full_like(last_match[:, :1], -1), last_match[:, :-1]], dim=1)
     prev_dist = torch.where(prev_match >= 0, bgather(dist, prev_match), 0)

@@ -16,7 +16,7 @@ import torch
 
 from orz_tpu_torch import trace
 from orz_tpu_torch.kernels.fence_walk import walk_items
-from orz_tpu_torch.kernels.seg_scan import last_marked
+from orz_tpu_torch.kernels.seg_scan import exclusive_sum, last_marked
 from orz_tpu_torch.kernels.walk_mask import walk_mask
 from orz_tpu_torch.ops.batched import (
     INT_MAX,
@@ -81,12 +81,14 @@ def _expand_b(start, kind, q, head_len, tail_len, n_items):
     literals: (start, kind, length, q, n) of the expanded list, with the
     tail past n filled (0x7FFFFFFE, 0, 0, 0).  The owner of each expanded
     slot is the last item whose offset is at or before it (JAX scatters
-    the item indices and takes a cummax)."""
+    the item indices and takes a cummax).  The offsets fit int32: a valid
+    item's 1 + tail_len is at most its length, and the lengths add up to
+    at most the segment's bytes."""
     bsz, mc = start.shape
     idx = _positions(bsz, mc, start.device).long()
     valid = idx < n_items.view(-1, 1)
-    reps = torch.where(valid, 1 + tail_len.long(), 0)
-    off = torch.cumsum(reps, dim=1) - reps
+    reps = torch.where(valid, 1 + tail_len, 0).int()
+    off = exclusive_sum(None, reps).long()
     total = (off[:, -1] + reps[:, -1]).int()
     sorted_off = torch.where(valid, torch.clamp(off, max=mc), mc)
     owner = torch.searchsorted(sorted_off.contiguous(), idx.contiguous(),
@@ -116,7 +118,7 @@ def _ranks_and_membership_b(start, kind, q, pk1, n_items):
     valid = idx < n_items.view(-1, 1)
     cctx = (bgather(pk1, torch.where(valid, start, 0)) >> 10) & 0xFF
     sk, si = torch.sort(torch.where(valid, cctx, 0x7FFF), dim=1, stable=True)
-    gstart = torch.cummax(torch.where(_first_marks(sk), idx, 0), dim=1).values
+    gstart = last_marked(None, _first_marks(sk))  # slot 0 is marked
     srank = torch.empty_like(idx).scatter_(1, si, idx - gstart)
 
     is_m = (kind == 2) & valid

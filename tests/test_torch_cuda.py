@@ -30,11 +30,37 @@ from torch_walk_inputs import (
     WALK_VARIANTS,
     fence_walk_inputs,
     seg_scan_inputs,
+    seg_scan_values,
     walk_inputs,
     walk_plain,
 )
 
 CAP = 1 << 18
+
+SEG_SCAN_OPS = ((seg_scan.last_marked, seg_scan.last_marked_plain),
+                (seg_scan.exclusive_count, seg_scan.exclusive_count_plain),
+                (seg_scan.running_max, seg_scan.running_max_plain),
+                (seg_scan.exclusive_sum, seg_scan.exclusive_sum_plain))
+
+
+def _seg_scan_equal(first, marked, values):
+    """The four segmented-scan kernels equal their plain versions, with
+    the groups of ``first`` and with none (``first`` None): 8 launches."""
+    before = seg_scan.launches
+    for f in (first, None):
+        for (fn, plain), x in zip(SEG_SCAN_OPS, (marked, marked, values,
+                                                  values)):
+            got = fn(f, x)
+            assert got.dtype == torch.int32
+            assert torch.equal(got, plain(f, x)), fn.__name__
+    assert seg_scan.launches == before + 8
+
+
+def _seg_scan_case(cuda, case, bsz, n, seed):
+    first, marked = seg_scan_inputs(case, bsz, n, seed)
+    return (first.to(cuda), marked.to(cuda),
+            seg_scan_values(bsz, n, seed).to(cuda))
+
 
 def walk(args, depth: int, variant: str):
     """K1 or K2 (``WALK_VARIANTS``) through its wrapper."""
@@ -211,20 +237,20 @@ def test_wrappers_raise_on_bad_cuda_input(cuda, case):
     """On CUDA tensors the K1, K3/K4 and segmented-scan wrappers raise on
     what their kernels cannot take, and launch nothing."""
     if case.startswith("scan"):
-        first, marked = (t.to(cuda) for t in seg_scan_inputs("dense", 2,
-                                                             1000))
+        first, marked, values = _seg_scan_case(cuda, "dense", 2, 1000, 0)
         if case == "scan_dtype":
-            marked = marked.to(torch.uint8)
+            marked, values = marked.to(torch.uint8), values.long()
         elif case == "scan_contiguous":  # every other column of a wider row
             wide = torch.zeros((2, 2000), dtype=torch.bool, device=cuda)
             wide[:, ::2] = first
             first = wide[:, ::2]
         else:
-            marked = marked.cpu()
+            marked, values = marked.cpu(), values.cpu()
         before = seg_scan.launches
-        for fn in (seg_scan.last_marked, seg_scan.exclusive_count):
+        for (fn, _), x in zip(SEG_SCAN_OPS, (marked, marked, values,
+                                             values)):
             with pytest.raises(ValueError):
-                fn(first, marked)
+                fn(first, x)
         assert seg_scan.launches == before
         return
     if case.startswith("k1"):
@@ -546,18 +572,6 @@ def test_spans_share_the_profilers_clock_on_card(cuda):
                for lo, hi in launches)
 
 
-def _seg_scan_equal(first, marked):
-    """Both segmented-scan kernels equal their plain versions."""
-    before = seg_scan.launches
-    for fn, plain in ((seg_scan.last_marked, seg_scan.last_marked_plain),
-                      (seg_scan.exclusive_count,
-                       seg_scan.exclusive_count_plain)):
-        got = fn(first, marked)
-        assert got.dtype == torch.int32
-        assert torch.equal(got, plain(first, marked))
-    assert seg_scan.launches == before + 2
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", SEG_SCAN_CASES)
 @pytest.mark.parametrize("n", [1, seg_scan.TILE - 1, seg_scan.TILE,
@@ -565,8 +579,9 @@ def _seg_scan_equal(first, marked):
 def test_seg_scan_kernel_matches_plain(cuda, case, n):
     """Rows of one slot, one tile less one, one tile and one tile and one
     (rows after the first then start off 16-byte alignment: the kernel's
-    scalar loads and stores), B = 3."""
-    _seg_scan_equal(*(t.to(cuda) for t in seg_scan_inputs(case, 3, n, n)))
+    scalar loads and stores), B = 3; values at INT32_MIN, -1, 255 and
+    uniform over int32."""
+    _seg_scan_equal(*_seg_scan_case(cuda, case, 3, n, n))
 
 
 @pytest.mark.cuda
@@ -577,14 +592,17 @@ def test_seg_scan_look_back_chain(cuda, case):
     the same rows at an odd offset from the allocation (the scalar loads
     on every row)."""
     n = 40 * seg_scan.TILE + 77
-    first, marked = (t.to(cuda) for t in seg_scan_inputs(case, 2, n, 5))
-    _seg_scan_equal(first, marked)
+    first, marked, values = _seg_scan_case(cuda, case, 2, n, 5)
+    _seg_scan_equal(first, marked, values)
     buf = torch.zeros(2 * (2 * n + 1), dtype=torch.bool, device=cuda)
     off_first = buf[1:2 * n + 1].view(2, n)
     off_marked = buf[2 * n + 2:].view(2, n)
     off_first.copy_(first)
     off_marked.copy_(marked)
-    _seg_scan_equal(off_first, off_marked)
+    off_values = torch.zeros(2 * n + 1, dtype=torch.int32,
+                             device=cuda)[1:].view(2, n)
+    off_values.copy_(values)
+    _seg_scan_equal(off_first, off_marked, off_values)
 
 
 @pytest.mark.cuda
@@ -593,5 +611,51 @@ def test_seg_scan_look_back_chain(cuda, case):
 def test_seg_scan_main_path_shape(cuda, case, bsz):
     """B = 1 (the staged encoder) and B = 4 (a batch) at 8 MiB + PAD_FRONT
     slots, group starts at densities 1e-4 and 0.5."""
-    _seg_scan_equal(*(t.to(cuda) for t in seg_scan_inputs(
-        case, bsz, (8 << 20) + PAD_FRONT, bsz)))
+    _seg_scan_equal(*_seg_scan_case(cuda, case, bsz, (8 << 20) + PAD_FRONT,
+                                    bsz))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1 << 22, 1 << 24])
+@pytest.mark.parametrize("bsz", [1, 4])
+def test_seg_scan_item_space_shapes(cuda, bsz, n):
+    """B = 1 and 4 at 2^22 and 2^24 slots: MID2's item rows and the item
+    merges' 2 * mc rows at its 8,388,608-item bucket."""
+    _seg_scan_equal(*_seg_scan_case(cuda, "sparse", bsz, n, 7))
+
+
+# seg_scan.launches of one 4 x 8 MiB batch of test_batch_runs_no_aten_row_
+# scan's segments, counted on an H100.  l1: FRONT's context_ranks_b, then
+# MID's rep0_b, cand_of_queries and _seg_cummax.  l2 adds QUALITY's masked
+# analyses and MID2's repair loop, whose passes follow the data.
+SEG_SCAN_LAUNCHES = {1: 4, 2: 71}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [1, 2])
+def test_batch_runs_no_aten_row_scan(cuda, level, monkeypatch):
+    """Under torch.profiler, a 4 x 8 MiB batch (two binary segments, two
+    text-like ones; the default schedule) launches no ATen cummax
+    (``scan_innermost_dim_with_indices``), and ``seg_scan.launches`` rises
+    by the count recorded for it."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from orz_tpu_torch.device.batch import encode_segments_batch
+
+    for k in [k for k in os.environ if k.startswith(("OTZ", "ORZ"))]:
+        monkeypatch.delenv(k)
+    n = 8 << 20
+    segs = [_binary(41, n), _data(42, n), _binary(43, n), _data(44, n)]
+    encode_segments_batch(segs, level, device="cuda")
+    torch.cuda.synchronize()
+    before = seg_scan.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        encode_segments_batch(segs, level, device="cuda")
+        torch.cuda.synchronize()
+    got = seg_scan.launches - before
+    kernels = {e.key for e in prof.key_averages()}
+    assert any("seg_scan_kernel" in k for k in kernels)
+    assert not [k for k in kernels if "scan_innermost_dim_with_indices" in k]
+    assert got == SEG_SCAN_LAUNCHES[level], (level, got)

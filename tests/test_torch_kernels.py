@@ -33,6 +33,7 @@ from orz_tpu_torch.kernels import (
     walk_mask,
 )
 from orz_tpu_torch.ops import batched as ob
+from orz_tpu_torch.ops import otz2
 from orz_tpu_torch.spec import (
     FAR_RO_1,
     FAR_RO_2,
@@ -52,6 +53,7 @@ from torch_walk_inputs import (
     fence_walk_inputs,
     seg_scan_inputs,
     seg_scan_ref,
+    seg_scan_values,
     walk_inputs,
     walk_plain,
 )
@@ -537,15 +539,239 @@ def test_seg_scan_plain_matches_group_loop(case, bsz):
                                   old.numpy())
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "dim"])
+@pytest.mark.parametrize("grouped", [True, False])
+@pytest.mark.parametrize("n", [seg_scan.TILE - 1, 2 * seg_scan.TILE + 5])
+@pytest.mark.parametrize("case", SEG_SCAN_CASES)
+def test_seg_scan_values_plain_matches_group_loop(case, n, grouped):
+    """The running max and the exclusive sum (the wrappers, which run the
+    plain versions on the CPU) against a Python loop over each row's
+    groups, B = 3, on values uniform over int32 with a quarter each at
+    INT32_MIN, -1 and 255 (the sums wrap); and all four operators with
+    ``first`` None (each row one group) against the loop over rows with
+    no group start."""
+    first, marked = seg_scan_inputs(case, 3, n, seed=n)
+    values = seg_scan_values(3, n, seed=n)
+    f = first if grouped else None
+    want = seg_scan_ref(f, marked, values)
+    fns = ((seg_scan.last_marked, marked), (seg_scan.exclusive_count, marked),
+           (seg_scan.running_max, values), (seg_scan.exclusive_sum, values))
+    for (fn, x), ref in zip(fns, want):
+        got = fn(f, x)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "dim", "first_dtype"])
 def test_seg_scan_rejects_bad_input(bad):
     first, marked = seg_scan_inputs("dense", 2, 100)
+    values = seg_scan_values(2, 100)
     if bad == "dtype":
-        marked = marked.int()
+        marked, values = marked.int(), values.long()
     elif bad == "shape":
-        marked = marked[:, :99]
+        marked, values = marked[:, :99], values[:, :99]
+    elif bad == "dim":
+        first, marked, values = first[0], marked[0], values[0]
     else:
-        first, marked = first[0], marked[0]
-    for fn in (seg_scan.last_marked, seg_scan.exclusive_count):
+        first = first.int()
+    for fn, x in ((seg_scan.last_marked, marked),
+                  (seg_scan.exclusive_count, marked),
+                  (seg_scan.running_max, values),
+                  (seg_scan.exclusive_sum, values)):
         with pytest.raises(ValueError):
-            fn(first, marked)
+            fn(first, x)
+
+
+# --- the scan sites of MID2, the item merges and FRONT against the ATen
+# expressions they ran before they called kernels/seg_scan.py (the
+# functions as they were, kept here as the reference)
+
+
+def _old_expand_b(start, kind, q, head_len, tail_len, n_items):
+    bsz, mc = start.shape
+    idx = ob._positions(bsz, mc, start.device).long()
+    valid = idx < n_items.view(-1, 1)
+    reps = torch.where(valid, 1 + tail_len.long(), 0)
+    off = torch.cumsum(reps, dim=1) - reps
+    total = (off[:, -1] + reps[:, -1]).int()
+    sorted_off = torch.where(valid, torch.clamp(off, max=mc), mc)
+    owner = torch.searchsorted(sorted_off.contiguous(), idx.contiguous(),
+                               right=True) - 1
+    owner = owner.clamp(min=0)
+    o_start = ob.bgather(start, owner)
+    o_hlen = ob.bgather(head_len, owner)
+    within = idx - ob.bgather(off, owner)
+    is_head = within == 0
+    start2 = torch.where(is_head, o_start, o_start + o_hlen + within - 1)
+    kind2 = torch.where(is_head, ob.bgather(kind, owner), 0)
+    len2 = torch.where(is_head, o_hlen, 1)
+    q2 = torch.where(is_head & (kind2 == 2), ob.bgather(q, owner), 0)
+    live = idx < total.view(-1, 1)
+    return (torch.where(live, start2, 0x7FFFFFFE).int(),
+            torch.where(live, kind2, 0).int(),
+            torch.where(live, len2, 0).int(),
+            torch.where(live, q2, 0).int(), total)
+
+
+def _old_cand_of_queries(o_role, o_pay, mc):
+    last_item = torch.cummax(torch.where(o_role == 0, o_pay, -1),
+                             dim=1).values
+    return ob.scatter_queries(o_role == 1, o_pay, last_item, mc)
+
+
+def _old_ranks_and_membership_b(start, kind, q, pk1, n_items):
+    bsz, mc = start.shape
+    idx = ob._positions(bsz, mc, start.device)
+    valid = idx < n_items.view(-1, 1)
+    cctx = (ob.bgather(pk1, torch.where(valid, start, 0)) >> 10) & 0xFF
+    sk, si = torch.sort(torch.where(valid, cctx, 0x7FFF), dim=1, stable=True)
+    gstart = torch.cummax(torch.where(ob._first_marks(sk), idx, 0),
+                          dim=1).values
+    srank = torch.empty_like(idx).scatter_(1, si, idx - gstart)
+    is_m = (kind == 2) & valid
+    _, _, o_role, o_pay = ob.merge_by_target(
+        torch.where(valid, start, 0x7FFFFFFE),
+        torch.where(is_m, q, ob.INT_MAX))
+    cand = _old_cand_of_queries(o_role, o_pay, mc)
+    hit = is_m & (ob.bgather(start, cand) == q)
+    ro = torch.where(hit, srank - ob.bgather(srank, cand) - 1, 0)
+    return srank, hit, ro, cand
+
+
+def _old_rep0_b(start, kind, q, n_items):
+    bsz, mc = start.shape
+    idx = ob._positions(bsz, mc, start.device)
+    is_m = (kind == 2) & (idx < n_items.view(-1, 1))
+    dist = torch.where(is_m, start - q, 0)
+    last_match = torch.cummax(torch.where(is_m, idx, -1), dim=1).values
+    prev_match = torch.cat(
+        [torch.full_like(last_match[:, :1], -1), last_match[:, :-1]], dim=1)
+    prev_dist = torch.where(prev_match >= 0, ob.bgather(dist, prev_match), 0)
+    return is_m & (dist == prev_dist) & (prev_dist > 0)
+
+
+def _old_seg_cummax(first, v):
+    seg = torch.cumsum(first.long(), dim=1)
+    return torch.cummax(seg * 256 + v.long(), dim=1).values - seg * 256
+
+
+def _old_context_ranks_b(ba, valid):
+    bsz, n = valid.shape
+    x = ob._positions(bsz, n, valid.device)
+    sk, order = torch.sort(torch.where(valid, ba.cctx, ob.INT_MAX), dim=1,
+                           stable=True)
+    gstart = torch.cummax(torch.where(ob._first_marks(sk), x, 0),
+                          dim=1).values
+    (rank,) = ob._sort_back_b(order, (x - gstart,))
+    return torch.where(valid, rank, 0)
+
+
+def _random_parse(seed: int, mc: int = 700):
+    """A batch of 3 parses as MID2 holds them: item starts ascending by
+    each item's length from PAD_FRONT, literals, words and matches (2 to
+    255 bytes, half of them aimed at an earlier item's start, so that
+    ranks, hits and repeated distances occur), then garbage past n_items
+    (700, 400 and 0 items); pk1 with 6 byte contexts (bits 10-17), and
+    for the expansion each match's head length and tail (a third demoted
+    to a literal head)."""
+    rng = np.random.default_rng(seed)
+    n_items = np.array([mc, 400, 0], np.int32)
+    kind = rng.choice(3, (3, mc), p=[0.5, 0.2, 0.3]).astype(np.int32)
+    length = np.where(kind == 2, np.minimum(rng.geometric(0.08, (3, mc)) + 1,
+                                            255), np.where(kind == 1, 2, 1))
+    start = PAD_FRONT + np.cumsum(length, axis=1) - length
+    back = np.maximum(start - rng.integers(1, 3000, (3, mc)), 0)
+    earlier = start[np.arange(3)[:, None],
+                    (rng.random((3, mc)) * np.arange(mc)).astype(int)]
+    q = np.where(rng.random((3, mc)) < 0.5, earlier, back)
+    q = np.where(kind == 2, q, 0)
+    head = np.where(rng.random((3, mc)) < 1 / 3, 1,
+                    rng.integers(1, 256, (3, mc)) % length + 1)
+    head_kind = np.where((kind == 2) & (head == 1) & (length > 1), 0, kind)
+    tail = np.where(kind == 2, length - head, 0)
+    dead = np.arange(mc) >= n_items[:, None]
+    junk = rng.integers(0, 1 << 20, (4, 3, mc))
+    start = np.where(dead, junk[0], start)
+    kind = np.where(dead, junk[1] % 3, kind)
+    head_kind = np.where(dead, junk[1] % 3, head_kind)
+    q = np.where(dead, junk[2], q)
+    tail = np.where(dead, junk[3] % 1000, tail)
+    n = int(start[~dead].max(initial=0)) + 300
+    pk1 = ((rng.integers(0, 6, (3, n)) << 10)
+           | rng.integers(0, 1 << 10, (3, n)))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(np.int32))
+
+    return SimpleNamespace(
+        start=t(start), kind=t(kind), head_kind=t(head_kind), q=t(q),
+        length=t(length), head_len=t(np.where(dead, 1, head)),
+        tail_len=t(tail), n_items=t(n_items), pk1=t(pk1), mc=mc,
+        bufs=torch.from_numpy(rng.integers(0, 4, (3, n)).astype(np.uint8)))
+
+
+def _merge(p):
+    """The item merge of ``lengths_and_symbols`` (2 * mc slots): its
+    (o_role, o_pay), group starts and merged query lengths."""
+    valid = ob._positions(3, p.mc, "cpu") < p.n_items.view(-1, 1)
+    is_match = p.kind == 2
+    o, o_key, o_role, o_pay = ob.merge_by_target(
+        torch.where(valid, p.start, 0x7FFFFFFE),
+        torch.where(is_match & valid, p.q, ob.INT_MAX))
+    q_len = torch.where(is_match, p.length, 0)
+    o_len = torch.gather(torch.cat([torch.zeros_like(q_len), q_len], dim=1),
+                         1, o)
+    first = torch.cat([
+        torch.ones((3, 1), dtype=torch.bool),
+        (o_key[:, 1:] != o_key[:, :-1]) | (o_role[:, 1:] != o_role[:, :-1]),
+    ], dim=1)
+    return o_role, o_pay, first, o_len
+
+
+def _site_calls(site, p):
+    """(new, old): the site's function now and as it was, on the same
+    arguments."""
+    if site == "rep0_b":
+        args = (p.start, p.kind, p.q, p.n_items)
+        return ob.rep0_b(*args), _old_rep0_b(*args)
+    if site == "cand_of_queries":
+        o_role, o_pay = _merge(p)[:2]
+        return (ob.cand_of_queries(o_role, o_pay, p.mc),
+                _old_cand_of_queries(o_role, o_pay, p.mc))
+    if site == "_seg_cummax":
+        first, o_len = _merge(p)[2:]
+        return ob._seg_cummax(first, o_len), _old_seg_cummax(first, o_len)
+    if site == "_ranks_and_membership_b":
+        args = (p.start, p.kind, p.q, p.pk1, p.n_items)
+        return (otz2._ranks_and_membership_b(*args),
+                _old_ranks_and_membership_b(*args))
+    if site == "context_ranks_b":
+        ba = ob.byte_arrays_b(p.bufs)
+        x = ob._positions(3, p.bufs.shape[1], "cpu")
+        valid = (x >= PAD_FRONT) & (x < torch.tensor([[x.shape[1] - 7],
+                                                      [900], [PAD_FRONT]]))
+        return ob.context_ranks_b(ba, valid), _old_context_ranks_b(ba, valid)
+    args = (p.start, p.head_kind, p.q, p.head_len, p.tail_len, p.n_items)
+    return otz2._expand_b(*args), _old_expand_b(*args)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+@pytest.mark.parametrize("site", ["rep0_b", "cand_of_queries", "_seg_cummax",
+                                  "_ranks_and_membership_b",
+                                  "context_ranks_b", "_expand_b"])
+def test_scan_sites_equal_their_aten_expressions(site, seed):
+    """Each site whose ``torch.cummax`` or ``torch.cumsum`` became a
+    ``kernels/seg_scan.py`` call returns what it returned before, in the
+    same dtypes, on random parses with garbage past n_items (one row full,
+    one empty) and their 2 * mc-slot item merges; MID2's expansion
+    overflows mc in one row and not in another."""
+    p = _random_parse(seed)
+    new, old = _site_calls(site, p)
+    new = new if isinstance(new, tuple) else (new,)
+    old = old if isinstance(old, tuple) else (old,)
+    assert len(new) == len(old)
+    for a, b in zip(new, old):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b)
+    if site == "_expand_b":
+        total = new[-1]
+        assert bool((total > p.mc).any()) and bool((total <= p.mc).any())

@@ -1,7 +1,7 @@
 """Inputs built to stress the kernels' walks, shared by the CPU tests
 (``test_torch_kernels.py``) and the card tests (``test_torch_cuda.py``):
 K1/K2's candidate walk, K3/K4's fence-block walk and the segmented scans'
-groups across tiles.
+groups across tiles and their values.
 
 Imports neither jax nor the repository's conftest, so that the card tests
 run on a machine without jax."""
@@ -153,19 +153,41 @@ def seg_scan_inputs(case: str, bsz: int, n: int, seed: int = 0):
     return torch.from_numpy(first), torch.from_numpy(marked)
 
 
-def seg_scan_ref(first, marked):
+def seg_scan_values(bsz: int, n: int, seed: int = 0) -> torch.Tensor:
+    """(B, n) int32 values for the running max and the exclusive sum:
+    uniform over int32, with a quarter of the slots each at INT32_MIN, -1
+    and 255 (so that the sums wrap)."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(-2**31, 2**31, (bsz, n), dtype=np.int64)
+    pick = rng.integers(0, 4, (bsz, n))
+    v = np.where(pick == 1, -2**31, np.where(pick == 2, -1,
+                                             np.where(pick == 3, 255, v)))
+    return torch.from_numpy(v.astype(np.int32))
+
+
+def seg_scan_ref(first, marked, values=None):
     """(last_marked, exclusive_count) as int32 numpy arrays, by a Python
-    loop over each row's groups."""
-    first, marked = first.numpy(), marked.numpy()
+    loop over each row's groups; with ``values``, also (running_max,
+    exclusive_sum), the sum modulo 2^32.  ``first`` None: each row one
+    group."""
+    marked = marked.numpy()
+    first = np.zeros(marked.shape, bool) if first is None else first.numpy()
+    vals = np.zeros(marked.shape, np.int64) if values is None \
+        else values.numpy().astype(np.int64)
     last = np.empty(first.shape, np.int32)
     count = np.empty(first.shape, np.int32)
+    rmax = np.empty(first.shape, np.int32)
+    esum = np.empty(first.shape, np.int32)
     for b in range(first.shape[0]):
         starts = np.flatnonzero(first[b]).tolist()
         for g0, g1 in zip([0] + starts, starts + [first.shape[1]]):
-            newest, cnt = -1, 0
+            newest, cnt, mx, sm = -1, 0, -2**31, 0
             for i in range(g0, g1):
                 count[b, i] = cnt
+                esum[b, i] = (sm + 2**31) % 2**32 - 2**31
                 if marked[b, i]:
                     newest, cnt = i, cnt + 1
                 last[b, i] = newest
-    return last, count
+                mx, sm = max(mx, int(vals[b, i])), sm + int(vals[b, i])
+                rmax[b, i] = mx
+    return (last, count) if values is None else (last, count, rmax, esum)
